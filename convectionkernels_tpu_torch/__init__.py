@@ -1,0 +1,23 @@
+"""convectionkernels_tpu_torch — BC7 texture block compression in PyTorch
+with hand-written CUDA kernels for NVIDIA Hopper.
+
+The PyTorch port of convectionkernels_tpu (which stays the reference): the
+same bytes for the same blocks, Options and BC7 plan. It imports torch and
+numpy only, never JAX or the reference package.
+"""
+
+from .api import decode_bc7, encode_bc7
+from .bc7_plan import (BC7EncodingPlan, BC7FineTuningParams,
+                       plan_from_fine_tuning_params, plan_from_quality)
+from .options import Flags, Options
+
+__all__ = [
+    "BC7EncodingPlan",
+    "BC7FineTuningParams",
+    "Flags",
+    "Options",
+    "decode_bc7",
+    "encode_bc7",
+    "plan_from_fine_tuning_params",
+    "plan_from_quality",
+]

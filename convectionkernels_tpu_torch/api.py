@@ -1,0 +1,79 @@
+"""Public BC7 API.
+
+The PyTorch counterpart of cvtt::Kernels' BC7 entry points
+(ConvectionKernels.h:236-277, ConvectionKernels_API.cpp). Every entry point
+takes a batch of N blocks ([N, 16, 4] pixels) and runs on `device`: the
+CUDA card by default, where the hand-written kernels run, or the CPU when
+the caller asks for it, where their plain PyTorch versions run.
+
+Blocks are independent, so a large batch is encoded in host-side chunks
+of CHUNK_BC7 blocks, which bounds the device memory of the per-candidate
+kernel outputs.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from . import bc7_plan
+from .models import bc7, decode
+from .options import Options
+
+# Blocks per encode chunk. On an H100 the encode's host-side torch ops cost
+# a fixed launch overhead per chunk, so larger chunks are faster until the
+# per-candidate outputs (~90 KB a block at q50) crowd device memory;
+# PERF.md records the sweep this value comes from.
+CHUNK_BC7 = 65536
+
+
+def resolve_device(device=None) -> torch.device:
+    """`device`, or the CUDA card when None; raises when CUDA is asked for
+    and there is none (the CPU is only used when asked for by name)."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass device='cpu' to run the "
+                           "plain PyTorch versions of the kernels")
+    return dev
+
+
+def _as_blocks(pixels, device) -> torch.Tensor:
+    t = torch.as_tensor(np.asarray(pixels) if not torch.is_tensor(pixels)
+                        else pixels)
+    if t.dim() != 3 or t.shape[1] != 16 or t.shape[2] != 4:
+        raise ValueError(f"expected [N, 16, 4] pixel blocks, got "
+                         f"{tuple(t.shape)}")
+    if t.dtype != torch.uint8:
+        raise TypeError(f"expected uint8 pixels, got {t.dtype}")
+    return t.to(device)
+
+
+def encode_bc7(pixels, options: Options = Options(), plan=None, quality=None,
+               device=None) -> torch.Tensor:
+    """Kernels::EncodeBC7 (API.cpp:41-54): uint8 [N, 16, 4] -> uint8
+    [N, 16] on `device`.
+
+    `plan` is a BC7EncodingPlan (default: max quality); `quality` (1-100)
+    configures a plan via ConfigureBC7EncodingPlanFromQuality.
+    """
+    dev = resolve_device(device)
+    if plan is None:
+        plan = (bc7_plan.plan_from_quality(quality) if quality is not None
+                else bc7_plan.BC7EncodingPlan())
+    blocks = _as_blocks(pixels, dev)
+    cw = options.channel_weights()
+    outs = [bc7.pack(blocks[i:i + CHUNK_BC7], options.flags, cw, plan,
+                     options.refine_rounds_bc7)
+            for i in range(0, blocks.shape[0], CHUNK_BC7)]
+    if not outs:
+        return torch.zeros((0, 16), dtype=torch.uint8, device=dev)
+    return outs[0] if len(outs) == 1 else torch.cat(outs, dim=0)
+
+
+def decode_bc7(blocks, device=None) -> torch.Tensor:
+    """Kernels::DecodeBC7 (API.cpp:288-298): uint8 [N, 16] -> uint8
+    [N, 16, 4] on `device`. Decoding runs on the host in NumPy."""
+    dev = resolve_device(device)
+    if torch.is_tensor(blocks):
+        blocks = blocks.cpu().numpy()
+    return torch.as_tensor(decode.decode_bc7(np.asarray(blocks))).to(dev)

@@ -1,0 +1,81 @@
+"""Lane math: exact float/int semantics shared by the BC7 encoder.
+
+The batched form of the reference's ParallelMath layer
+(ConvectionKernels_ParallelMath.h). Every value is a torch tensor whose
+leading axis is the block axis; per-lane predication (`Select` /
+`ConditionalSet`) is `torch.where`.
+
+Bit-exactness contract: semantics follow the reference's *scalar* build
+(ParallelMath.h:1281-1812):
+  - round-to-nearest == floor(x + 0.5f), never torch.round (ParallelMath.h:1677)
+  - Reciprocal == exact IEEE 1/x                     (ParallelMath.h:1456)
+  - integer lane types are int32                     (ParallelMath.h:1311-1318)
+Integer tensors are built with an explicit int32 dtype: a tensor made from
+a Python list or an int64 numpy array would otherwise be int64.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+F32 = torch.float32
+I32 = torch.int32
+
+FLT_MAX = float(np.float32(3.4028234663852886e38))
+
+
+def to_float(v):
+    """ParallelMath::ToFloat — int32 lane -> float32."""
+    return v.to(F32)
+
+
+def round_and_convert_to_int_nearest(v):
+    """RoundAndConvertToU15/U16/S16 under round-to-nearest, as int32: the
+    scalar RoundTowardNearestForScope floor(v + 0.5f) (ParallelMath.h:1677)."""
+    return torch.floor(v + 0.5).to(I32)
+
+
+def clamp(v, lo, hi):
+    """ParallelMath::Clamp: min then max order preserved (scalar :1447-1454)."""
+    return torch.clamp_min(torch.clamp_max(v, float(hi)), float(lo))
+
+
+def make_safe_denominator(v):
+    """MakeSafeDenominator: 0 -> 1 (ParallelMath.h:1398-1402)."""
+    return torch.where(v == 0.0, torch.ones_like(v), v)
+
+
+def sq_diff_int(a, b):
+    """SqDiffUInt8 scalar: (a-b)^2 in int32 (ParallelMath.h:1705-1723)."""
+    d = a - b
+    return d * d
+
+
+def lex_min_with_index(x, dim: int):
+    """(min value, first-occurrence index) over `dim` as an explicit
+    compare chain: strict-less on value, ties keep the earlier index."""
+    n = x.shape[dim]
+    best = x.select(dim, 0)
+    idx = torch.zeros(best.shape, dtype=I32, device=x.device)
+    for j in range(1, n):
+        v = x.select(dim, j)
+        better = v < best
+        best = torch.where(better, v, best)
+        idx = torch.where(better, torch.full_like(idx, j), idx)
+    return best, idx
+
+
+def compute_tweak_factors(tweak: int, range_: int) -> tuple[np.float32, np.float32]:
+    """Util::ComputeTweakFactors (ConvectionKernels_Util.cpp:75-84).
+
+    Host-side: tweak/range are static. Returns float32 factors with the exact
+    C float arithmetic (including -0.0 for factor0 when minOutsideUnits==0).
+    """
+    total_units = range_ - 1
+    min_outside = (tweak >> 1) & 1
+    max_outside = tweak & 1
+    inside = total_units - min_outside - max_outside
+    f0 = -(np.float32(min_outside)) / np.float32(inside)
+    f1 = np.float32(max_outside) / np.float32(inside) + np.float32(1.0)
+    return f0, f1
