@@ -1,25 +1,36 @@
 #!/usr/bin/env python3
-"""Drive the torch port's BC7 main path on one CUDA card and check it.
+"""Drive the torch port's main paths (BC7 q50 and BC6H encode) on one CUDA
+card and check them.
 
     python3 chip_smoke.py                  # the check, on one card
     python3 chip_smoke.py --chunks 8192,16384,32768,65536
                                            # also time encode_bc7 per chunk size
+    python3 chip_smoke.py --chunks-bc6h 4096,8192,16384,32768
+                                           # also time encode_bc6hu per chunk size
     python3 chip_smoke.py --profile        # also profile one full-width encode
-    python3 chip_smoke.py --out DIR        # chip_smoke.json and profile.txt
+                                           # of each path
+    python3 chip_smoke.py --out DIR        # chip_smoke.json and profile_*.txt
                                            # go to DIR (default build/chip_smoke)
 
 Phases, each printed on its own line; any failure exits nonzero:
   1. build the CUDA kernels from csrc/ (one nvcc per source, in parallel);
   2. exact_probe: divide/sqrt/round/clamp/FMA/int chains, card vs CPU bits;
-  3. each kernel against its plain PyTorch version on the card, on the
-     inputs a 256-block q50 encode gives it (every mode's launch): f32
-     outputs compared as int32 bits, so the tolerance is 0;
-  4. encode_bc7 on the card against the JAX package's q50 golden bytes;
-  5. the full-width run: a 1024x1024 RGBA texture (65,536 blocks) through
-     encode_bc7 at quality 50 with default Options, decoded back, timed
-     with CUDA events (median of 3 after a warm-up), with each kernel's
-     launches counted over the main path; then each kernel, launched at
-     the full width, against its plain version on 1,024 of its blocks;
+  3. each kernel against its plain PyTorch version on the card: the BC7
+     kernels on the inputs a 256-block q50 encode gives them (every mode's
+     launch), the BC6H kernel on the blocks of the stored BC6H goldens at
+     12 rounds (unsigned/slow/aPrec 10, signed/fast/aPrec 6, uniform
+     weights): f32 outputs compared as int32 bits, so the tolerance is 0;
+  4. encode_bc7, encode_bc6hu and encode_bc6hs on the card against the JAX
+     package's golden bytes;
+  5. the full-width runs, each timed with CUDA events (median of 3 after a
+     warm-up) with its kernels' launches counted over the main path, and
+     then each kernel, launched at the full width, against its plain
+     version on 1,024 of its blocks:
+       - BC7: a 1024x1024 RGBA texture (65,536 blocks) through encode_bc7
+         at quality 50 with default Options, decoded back;
+       - BC6H: a 1024x1024 RGBA16F texture (65,536 blocks of half floats
+         uniform in [0, 16), alpha 1.0) through encode_bc6hu with default
+         Options (4 x 3 meta rounds, slow indexing), decoded back;
   6. one JSON line describing every kernel, the card's name and power
      limit, and the final {"ok": true, ...} line.
 
@@ -44,15 +55,25 @@ H100_F32_OPS_PER_S = 67e12   # float32 outside the tensor cores, data sheet
 
 KERNELS = {
     "shape_pca": dict(
+        module="bc7_kernel",
         source="convectionkernels_tpu_torch/csrc/shape_pca.cu",
         replaces="convectionkernels_tpu/models/bc7_kernel.py:246"),
     "single_plane_mode_best": dict(
+        module="bc7_kernel",
         source="convectionkernels_tpu_torch/csrc/single_plane.cu",
         replaces="convectionkernels_tpu/models/bc7_kernel.py:302"),
     "dual_plane_best": dict(
+        module="bc7_kernel",
         source="convectionkernels_tpu_torch/csrc/dual_plane.cu",
         replaces="convectionkernels_tpu/models/bc7_kernel.py:629"),
+    "partitioned_group_meta_rounds": dict(
+        module="bc6h_kernel",
+        source="convectionkernels_tpu_torch/csrc/bc6h_group.cu",
+        replaces="convectionkernels_tpu/models/bc6h_kernel.py:302"),
 }
+BC7_KERNELS = tuple(k for k, v in KERNELS.items()
+                    if v["module"] == "bc7_kernel")
+BC6H_KERNEL = "partitioned_group_meta_rounds"
 
 
 # --- work model: bytes each launch must move, operations it must do --------
@@ -123,13 +144,49 @@ def work_dual_plane(args):
     return nbytes, n * lanes * per_lane
 
 
+def work_bc6h_group(args):
+    """csrc/bc6h_group.cu per (block, row q): the body's operations per
+    round, per pixel and per interpolant; the masked terms are computed
+    for all 16 pixels."""
+    pix, is_signed, fast, uniform = args[0], args[4], args[5], args[6]
+    tweaks, refines = args[8], args[9]
+    n, rounds = pix.shape[0], tweaks * refines
+    unscale = 6 if is_signed else 2
+    recon = 6 + unscale                  # interpolate, round, shift, unscale
+    weigh = 0 if uniform else 1
+    if fast:
+        setup = 6 + 5 + 2 + 6            # origin, diff, len_sq, divide, axis
+        per_px = (8 + 4 + 3              # project, clamp and round, weight
+                  + 3 * (recon + 3 + weigh) + 2)
+    else:
+        setup = 8 * 3 * (recon + 12 + 1)  # interpolants: TwosCL, times cw
+        per_px = 8 * (8 + 1 + 5) + 3 * (2 + weigh) + 2
+    per_px += 2 + 2 + 6                  # subset error; pack; invert, repack
+    per_round = (6 * 14                  # quantize, unquantize
+                 + setup + 16 * per_px + 8 + 3)
+    seed = 6 * 7                         # tweak-seeded endpoints
+    solve = 12 + 3 * 14                  # refined endpoints
+    contribute = 16 * 26                 # refiner totals of 16 pixels
+    dedup = 7 * rounds * (rounds - 1) // 2
+    per_row = (rounds * per_round + tweaks * seed
+               + tweaks * (refines - 1) * (solve + contribute) + dedup)
+    nbytes = n * (48 * 4 + 2 * 3 * 64 * 4) + n * rounds * 64 * 40
+    return nbytes, n * 64 * per_row
+
+
 WORK = {"shape_pca": work_shape_pca,
         "single_plane_mode_best": work_single_plane,
-        "dual_plane_best": work_dual_plane}
+        "dual_plane_best": work_dual_plane,
+        "partitioned_group_meta_rounds": work_bc6h_group}
 
 # positions of each wrapper's arguments whose leading axis is the block axis
 ROW_ARGS = {"shape_pca": (0,), "single_plane_mode_best": (1, 2, 3, 4, 5),
-            "dual_plane_best": (0,)}
+            "dual_plane_best": (0,),
+            "partitioned_group_meta_rounds": (0, 1, 2)}
+
+# what tells one launch of a kernel from another: (label, argument position)
+LAUNCH_TAG = {"single_plane_mode_best": ("mode", 0),
+              "partitioned_group_meta_rounds": ("aprec", 3)}
 
 
 # --- helpers -----------------------------------------------------------------
@@ -139,6 +196,10 @@ def flat_outputs(out):
     if isinstance(out, dict):
         return [out[k] for k in sorted(out)]
     return [t for t in out if torch.is_tensor(t)]
+
+
+def out_device(out):
+    return flat_outputs(out)[0].device
 
 
 def take_rows(out, rows):
@@ -172,30 +233,30 @@ def compare(kernel_out, plain_out):
 
 
 class Instrument:
-    """Wrap the three kernel wrappers of models/bc7_kernel.py for one run:
-    time each launch with CUDA events, add up its work model, and (when
-    `with_plain`) run its plain version on the same inputs and compare,
-    on every block or on the blocks `plain_rows` only."""
+    """Wrap the kernel wrappers `names` of one module of models/ for one
+    run: time each launch with CUDA events, add up its work model, and
+    (when `with_plain`) run its plain version on the same inputs and
+    compare, on every block or on every `plain_stride`-th block only."""
 
-    def __init__(self, bc7_kernel, with_plain, plain_rows=None):
-        self.mod = bc7_kernel
+    def __init__(self, module, names, with_plain, plain_stride=None):
+        self.mod = module
+        self.names = tuple(names)
         self.with_plain = with_plain
-        self.plain_rows = plain_rows
-        self.events = {k: [] for k in KERNELS}
-        self.plain_events = {k: [] for k in KERNELS}
-        self.work = {k: [0, 0] for k in KERNELS}
-        self.equal = {k: True for k in KERNELS}
-        self.max_err = {k: 0.0 for k in KERNELS}
+        self.plain_stride = plain_stride
+        self.events = {k: [] for k in self.names}
+        self.plain_events = {k: [] for k in self.names}
+        self.work = {k: [0, 0] for k in self.names}
+        self.equal = {k: True for k in self.names}
+        self.max_err = {k: 0.0 for k in self.names}
+        self.blocks_compared = {k: 0 for k in self.names}
         self.detail = []
         self.saved = {}
 
     def __enter__(self):
         import torch
-        plain = {"shape_pca": self.mod.shape_pca_plain,
-                 "single_plane_mode_best":
-                     self.mod.single_plane_mode_best_plain,
-                 "dual_plane_best": self.mod.dual_plane_best_plain}
-        for name in KERNELS:
+        plain = {name: getattr(self.mod, name + "_plain")
+                 for name in self.names}
+        for name in self.names:
             fn = getattr(self.mod, name)
             self.saved[name] = fn
 
@@ -209,15 +270,23 @@ class Instrument:
                 nbytes, ops = WORK[_name](args)
                 self.work[_name][0] += nbytes
                 self.work[_name][1] += ops
-                self.detail.append(dict(kernel=_name, mode=(
-                    args[0] if _name == "single_plane_mode_best" else None),
-                    bytes=nbytes, ops=ops, event=len(self.events[_name]) - 1))
+                entry = dict(kernel=_name, bytes=nbytes, ops=ops,
+                             event=len(self.events[_name]) - 1)
+                if _name in LAUNCH_TAG:
+                    label, position = LAUNCH_TAG[_name]
+                    entry[label] = args[position]
+                self.detail.append(entry)
                 if self.with_plain:
-                    rows = self.plain_rows
-                    if rows is not None:
+                    rows = None
+                    n_rows = args[ROW_ARGS[_name][0]].shape[0]
+                    if self.plain_stride is not None:
+                        rows = torch.arange(0, n_rows, self.plain_stride,
+                                            device=out_device(out))
                         args = [a.index_select(0, rows)
                                 if i in ROW_ARGS[_name] else a
                                 for i, a in enumerate(args)]
+                    self.blocks_compared[_name] += (
+                        n_rows if rows is None else len(rows))
                     ps = torch.cuda.Event(enable_timing=True)
                     pe = torch.cuda.Event(enable_timing=True)
                     ps.record()
@@ -270,7 +339,18 @@ def make_texture(seed=0, size=1024):
     return blocks.reshape(-1, 16, 4).copy()
 
 
-def profile_encode(api, tex_dev, opts, dev, out_dir):
+def make_hdr_texture(seed=43, n_blocks=65536):
+    """A 1024x1024 RGBA16F texture as int16 half-float bits [65536, 16, 4]:
+    values uniform in [0, 16) from a seed, alpha 1.0 (the generator of the
+    JAX bench's bc6hu row)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    vals = rng.uniform(0, 16.0, size=(n_blocks, 16, 4)).astype(np.float16)
+    vals[..., 3] = np.float16(1.0)
+    return vals.view(np.int16)
+
+
+def profile_encode(encode, out_path):
     """One full-width encode under torch.profiler: the device's busy time
     by kernel name against the host's wall time for the same encode."""
     import torch
@@ -279,7 +359,7 @@ def profile_encode(api, tex_dev, opts, dev, out_dir):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        api.encode_bc7(tex_dev, opts, quality=50, device=dev)
+        encode()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     averages = prof.key_averages()
@@ -292,7 +372,7 @@ def profile_encode(api, tex_dev, opts, dev, out_dir):
             us = e.self_cuda_time_total
         rows.append((e.key, us / 1e3, e.count))
     rows.sort(key=lambda r: -r[1])
-    with open(os.path.join(out_dir, "profile.txt"), "w") as f:
+    with open(out_path, "w") as f:
         f.write(averages.table(sort_by="self_cuda_time_total", row_limit=80))
     return dict(wall_ms=wall_ms, device_busy_ms=sum(r[1] for r in rows),
                 device_launches=sum(r[2] for r in rows),
@@ -300,16 +380,35 @@ def profile_encode(api, tex_dev, opts, dev, out_dir):
                      for k, ms, c in rows[:30]])
 
 
+def kernel_entry_name(symbol):
+    """The kernel's name and template arguments from its mangled symbol:
+    `<length><name>_kernel` followed, for a template, by I(L[ib]<n>E)+E."""
+    end = symbol.find("_kernel")
+    if end < 0:
+        return None
+    end += len("_kernel")
+    name = None
+    for length in range(end, 0, -1):
+        start = end - length
+        if start >= len(str(length)) and \
+                symbol[start - len(str(length)):start] == str(length):
+            name = symbol[start:end]
+            break
+    if name is None:
+        return None
+    m = re.match(r"I((?:L[ib]\d+E)+)E", symbol[end:])
+    args = re.findall(r"L[ib](\d+)E", m.group(1)) if m else []
+    return f"{name}<{','.join(args)}>" if args else name
+
+
 def ptxas_usage(log_text):
     """{kernel<template args>: "N registers, S bytes stack"} from the
     -Xptxas -v output nvcc gave when it built a library."""
     usage, entry = {}, None
     for line in log_text.splitlines():
-        m = re.search(r"Compiling entry function '\w*?([a-z_]+_kernel)"
-                      r"(?:I((?:L[ib]\d+E)+)E)?", line)
+        m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            args = re.findall(r"L[ib](\d+)E", m.group(2) or "")
-            entry = f"{m.group(1)}<{','.join(args)}>" if args else m.group(1)
+            entry = kernel_entry_name(m.group(1))
         m = re.search(r"Used (\d+) registers", line)
         if m and entry:
             stack = re.search(r"(\d+) bytes cumulative stack", line)
@@ -328,18 +427,57 @@ def phase(name, **fields):
     print(json.dumps(dict(phase=name, **fields)), flush=True)
 
 
+def timed(fn, repeats=3):
+    """CUDA-event times in ms of `repeats` calls of fn, and the last
+    result."""
+    import torch
+    times, out = [], None
+    for _ in range(repeats):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        out = fn()
+        e.record()
+        torch.cuda.synchronize()
+        times.append(s.elapsed_time(e))
+    return times, out
+
+
+def chunk_sweep(api, attr, chunks, encode, dev):
+    """Encode times and peak device memory for each value of the api
+    module's chunk size `attr`."""
+    import torch
+    sweep = {}
+    default_chunk = getattr(api, attr)
+    try:
+        for chunk in chunks:
+            setattr(api, attr, chunk)
+            encode()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            runs, _ = timed(encode)
+            sweep[chunk] = dict(
+                encode_ms=runs,
+                peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30)
+    finally:
+        setattr(api, attr, default_chunk)
+    return sweep
+
+
 # --- main ----------------------------------------------------------------------
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--chunks", default="",
-                    help="comma-separated encode chunk sizes to time")
+                    help="comma-separated encode_bc7 chunk sizes to time")
+    ap.add_argument("--chunks-bc6h", default="",
+                    help="comma-separated encode_bc6hu chunk sizes to time")
     ap.add_argument("--profile", action="store_true",
-                    help="also profile one full-width encode "
-                         "(profile.txt in --out)")
+                    help="also profile one full-width encode of each path "
+                         "(profile_bc7.txt, profile_bc6h.txt in --out)")
     ap.add_argument("--out", default=os.path.join(REPO, "build", "chip_smoke"),
                     help="directory for chip_smoke.json (every launch's "
-                         "time and work) and profile.txt")
+                         "time and work) and the profiles")
     args = ap.parse_args(argv)
 
     import torch
@@ -351,12 +489,14 @@ def main(argv=None):
 
     import convectionkernels_tpu_torch as ckt
     from convectionkernels_tpu_torch import api, cuda_lib, exact_probe
-    from convectionkernels_tpu_torch.models import bc7_kernel
+    from convectionkernels_tpu_torch.models import (bc6h, bc6h_kernel, bc7,
+                                                    bc7_kernel)
 
     dev = torch.device("cuda:0")
     torch.cuda.set_device(dev)
     os.makedirs(args.out, exist_ok=True)
     detail = {}
+    testdata = os.path.join(REPO, "convectionkernels_tpu_torch", "testdata")
 
     # 1. build
     t0 = time.perf_counter()
@@ -377,68 +517,123 @@ def main(argv=None):
         raise SystemExit(f"exact_probe: the card's results differ from the "
                          f"CPU's — check nvcc's flags: {mism}")
 
-    # 3. each kernel against its plain version, on a 256-block q50 encode
-    with np.load(os.path.join(REPO, "convectionkernels_tpu_torch",
-                              "testdata", "bc7_q50_golden.npz")) as z:
+    # 3a. each BC7 kernel against its plain version, on a 256-block q50 encode
+    with np.load(os.path.join(testdata, "bc7_q50_golden.npz")) as z:
         golden_px, golden_blocks = z["pixels"], z["blocks"]
     small = torch.as_tensor(golden_px, device=dev)
     opts = ckt.Options()
     plan = ckt.plan_from_quality(50)
-    from convectionkernels_tpu_torch.models import bc7
     # twice: the first run also loads the kernels and PyTorch's own CUDA
     # code, so only the second one's times are kept
     for _ in range(2):
-        with Instrument(bc7_kernel, with_plain=True) as small_run:
+        with Instrument(bc7_kernel, BC7_KERNELS, with_plain=True) as small_run:
             bc7.pack(small, opts.flags, opts.channel_weights(), plan,
                      opts.refine_rounds_bc7)
             torch.cuda.synchronize()
         if not all(small_run.equal.values()):
             break
-    for name in KERNELS:
-        phase("kernel_vs_plain", kernel=name,
-              launches=len(small_run.events[name]),
-              equal=small_run.equal[name],
-              max_abs_err=small_run.max_err[name])
-    if not all(small_run.equal.values()):
-        raise SystemExit("a kernel disagrees with its plain version")
+    equal = dict(small_run.equal)
+    max_err = dict(small_run.max_err)
     plain_ms = {k: Instrument.total_ms(small_run.plain_events[k])
-                for k in KERNELS}
+                for k in BC7_KERNELS}
     kernel_small_ms = {k: Instrument.total_ms(small_run.events[k])
-                       for k in KERNELS}
+                       for k in BC7_KERNELS}
+    plain_blocks = {k: len(golden_px) for k in BC7_KERNELS}
+    for name in BC7_KERNELS:
+        phase("kernel_vs_plain", kernel=name,
+              launches=len(small_run.events[name]), equal=equal[name],
+              max_abs_err=max_err[name])
 
-    # 4. the port's bytes against the JAX package's golden
+    # 3b. the BC6H kernel against its plain version on the blocks of the
+    # stored BC6H goldens, 4 x 3 rounds
+    with np.load(os.path.join(testdata, "bc6h_golden.npz")) as z:
+        bc6h_golden = {k: z[k] for k in z.files}
+    hdr_small = torch.as_tensor(np.concatenate(
+        [v for k, v in sorted(bc6h_golden.items())
+         if k.endswith("_pixels")]), device=dev)
+    plain_ms[BC6H_KERNEL] = kernel_small_ms[BC6H_KERNEL] = 0.0
+    plain_blocks[BC6H_KERNEL] = len(hdr_small)
+    equal[BC6H_KERNEL], max_err[BC6H_KERNEL] = True, 0.0
+    cols = torch.as_tensor([2 * p + s for s in range(2) for p in range(32)],
+                           device=dev)
+    for label, is_signed, fast, flags, aprec in (
+            ("unsigned_slow_aprec10", False, False, 0, 10),
+            ("signed_fast_aprec6", True, True, 0, 6),
+            ("unsigned_slow_uniform_aprec8", False, False,
+             ckt.Flags.UNIFORM, 8)):
+        uniform = bool(flags & ckt.Flags.UNIFORM)
+        cw = [float(np.float32(w))
+              for w in ckt.Options(flags=flags).channel_weights()[:3]]
+        pix = bc6h.prepare_pixels(hdr_small, is_signed)
+        ufep_base, ufep_offset = bc6h.pca_lines(pix, cw)
+        call = (pix,
+                torch.stack([b[:, cols] for b in ufep_base], 1).contiguous(),
+                torch.stack([o[:, cols] for o in ufep_offset],
+                            1).contiguous(),
+                aprec, is_signed, fast, uniform, cw, 4, 3)
+        for _ in range(2):      # the second run's times are kept
+            k_ms, got = timed(lambda: bc6h_kernel.
+                              partitioned_group_meta_rounds(*call), 1)
+            p_ms, want = timed(lambda: bc6h_kernel.
+                               partitioned_group_meta_rounds_plain(*call), 1)
+        same, err = compare(got, want)
+        equal[BC6H_KERNEL] &= same
+        max_err[BC6H_KERNEL] = max(max_err[BC6H_KERNEL], err)
+        if label == "unsigned_slow_aprec10":    # the main path's variant
+            plain_ms[BC6H_KERNEL] = p_ms[0]
+            kernel_small_ms[BC6H_KERNEL] = k_ms[0]
+        phase("kernel_vs_plain", kernel=BC6H_KERNEL, config=label,
+              blocks=len(hdr_small), rounds=12, equal=same, max_abs_err=err,
+              kernel_ms=k_ms[0], plain_ms=p_ms[0])
+    if not all(equal.values()):
+        raise SystemExit("a kernel disagrees with its plain version")
+
+    # 4. the port's bytes against the JAX package's goldens
     got = api.encode_bc7(golden_px, quality=50, device=dev).cpu().numpy()
     bad = int((got != golden_blocks).any(axis=1).sum())
     phase("golden_q50", blocks=len(golden_px), mismatched_blocks=bad)
     if bad:
         raise SystemExit(f"{bad} of {len(golden_px)} blocks differ from the "
                          f"JAX package's q50 golden")
+    bad_cases = {}
+    n_golden = 0
+    for name in sorted(k[:-len("_pixels")] for k in bc6h_golden
+                       if k.endswith("_pixels")):
+        flags, seed_points, refine_rounds, signed = (
+            int(v) for v in bc6h_golden[f"{name}_config"])
+        encode = api.encode_bc6hs if signed else api.encode_bc6hu
+        got = encode(bc6h_golden[f"{name}_pixels"], ckt.Options(
+            flags=flags, seed_points=seed_points,
+            refine_rounds_bc6h=refine_rounds), device=dev).cpu().numpy()
+        bad_cases[name] = int(
+            (got != bc6h_golden[f"{name}_blocks"]).any(axis=1).sum())
+        n_golden += len(got)
+    phase("golden_bc6h", blocks=n_golden, mismatched_blocks=bad_cases)
+    if any(bad_cases.values()):
+        raise SystemExit(f"blocks differ from the JAX package's BC6H "
+                         f"goldens: {bad_cases}")
 
-    # 5. the full-width run: 65,536 blocks, q50, default options
+    # 5a. the BC7 full-width run: 65,536 blocks, q50, default options
     tex = make_texture(seed=0)
     tex_dev = torch.as_tensor(tex, device=dev)
+
+    def encode_bc7_full():
+        return api.encode_bc7(tex_dev, opts, quality=50, device=dev)
+
     torch.cuda.synchronize()
     bc7_kernel.LAUNCHES.clear()
-    out = api.encode_bc7(tex_dev, opts, quality=50, device=dev)
+    out = encode_bc7_full()
     torch.cuda.synchronize()
-    launches = {k: bc7_kernel.LAUNCHES[k] for k in KERNELS}
+    launches = {k: bc7_kernel.LAUNCHES[k] for k in BC7_KERNELS}
     if out.shape != (tex.shape[0], 16) or out.dtype != torch.uint8:
         raise SystemExit(f"encode_bc7 returned {tuple(out.shape)} "
                          f"{out.dtype}")
     if not all(launches.values()):
         raise SystemExit(f"a kernel of the main path never launched: "
                          f"{launches}")
-    times = []
-    for _ in range(3):
-        s = torch.cuda.Event(enable_timing=True)
-        e = torch.cuda.Event(enable_timing=True)
-        s.record()
-        again = api.encode_bc7(tex_dev, opts, quality=50, device=dev)
-        e.record()
-        torch.cuda.synchronize()
-        times.append(s.elapsed_time(e))
-        if not torch.equal(again, out):
-            raise SystemExit("encode_bc7 is not deterministic")
+    times, again = timed(encode_bc7_full)
+    if not torch.equal(again, out):
+        raise SystemExit("encode_bc7 is not deterministic")
     ms = statistics.median(times)
     decoded = api.decode_bc7(out, device="cpu").numpy()
     quality_db = psnr(decoded, tex)
@@ -451,77 +646,135 @@ def main(argv=None):
           launches=launches)
 
     # per-kernel device time at the full-width shapes (one more encode)
-    with Instrument(bc7_kernel, with_plain=False) as full_run:
-        api.encode_bc7(tex_dev, opts, quality=50, device=dev)
+    with Instrument(bc7_kernel, BC7_KERNELS, with_plain=False) as full_run:
+        encode_bc7_full()
         torch.cuda.synchronize()
 
     # each kernel launched at the full width against its plain version on
     # the same inputs, for 1,024 blocks spread over the texture
-    rows = torch.arange(0, tex.shape[0], tex.shape[0] // 1024, device=dev)
-    with Instrument(bc7_kernel, with_plain=True, plain_rows=rows) as wide:
-        api.encode_bc7(tex_dev, opts, quality=50, device=dev)
+    with Instrument(bc7_kernel, BC7_KERNELS, with_plain=True,
+                    plain_stride=tex.shape[0] // 1024) as wide:
+        encode_bc7_full()
         torch.cuda.synchronize()
-    for name in KERNELS:
-        phase("kernel_vs_plain_full_width", kernel=name,
-              launches=len(wide.events[name]), blocks_compared=len(rows),
-              equal=wide.equal[name], max_abs_err=wide.max_err[name])
-    if not all(wide.equal.values()):
-        raise SystemExit("a kernel disagrees with its plain version at the "
-                         "full width")
     detail["full_width_launches"] = full_run.detail_ms()
     detail["small_launches"] = small_run.detail_ms()
+    del out, again
+
+    # 5b. the BC6H full-width run: 65,536 blocks, unsigned, default options
+    hdr = make_hdr_texture()
+    hdr_dev = torch.as_tensor(hdr, device=dev)
+
+    def encode_bc6h_full():
+        return api.encode_bc6hu(hdr_dev, opts, device=dev)
+
+    n_chunks = -(-hdr.shape[0] // api.CHUNK_BC6H)
+    torch.cuda.synchronize()
+    bc6h_kernel.LAUNCHES.clear()
+    out = encode_bc6h_full()
+    torch.cuda.synchronize()
+    launches[BC6H_KERNEL] = bc6h_kernel.LAUNCHES[BC6H_KERNEL]
+    if out.shape != (hdr.shape[0], 16) or out.dtype != torch.uint8:
+        raise SystemExit(f"encode_bc6hu returned {tuple(out.shape)} "
+                         f"{out.dtype}")
+    if launches[BC6H_KERNEL] != 6 * n_chunks:
+        raise SystemExit(f"encode_bc6hu launched its kernel "
+                         f"{launches[BC6H_KERNEL]} times, not 6 for each of "
+                         f"its {n_chunks} chunks")
+    torch.cuda.reset_peak_memory_stats(dev)
+    times, again = timed(encode_bc6h_full)
+    peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
+    if not torch.equal(again, out):
+        raise SystemExit("encode_bc6hu is not deterministic")
+    ms = statistics.median(times)
+    decoded = api.decode_bc6hu(out, device="cpu").numpy()
+    if not (decoded[..., 3] == 0x3C00).all():
+        raise SystemExit("decode_bc6hu: alpha is not 1.0")
+    src = hdr.view(np.float16)[..., :3].astype(np.float64)
+    back = decoded.view(np.float16)[..., :3].astype(np.float64)
+    rmse = float(np.sqrt(np.mean((src - back) ** 2)))
+    # the input is noise, which no 4x4 block format keeps: the bound only
+    # says that the blocks decode to the texture they were made from
+    if not np.isfinite(back).all() or not rmse < 0.8 * float(src.std()):
+        raise SystemExit(f"BC6H round trip: RMSE {rmse} against a source "
+                         f"spread of {src.std()}")
+    with Instrument(bc6h_kernel, (BC6H_KERNEL,),
+                    with_plain=False) as full_bc6h:
+        encode_bc6h_full()
+        torch.cuda.synchronize()
+    per_group = {}
+    for d in full_bc6h.detail_ms():
+        per_group[d["aprec"]] = per_group.get(d["aprec"], 0.0) + d["ms"]
+    kernel_ms = Instrument.total_ms(full_bc6h.events[BC6H_KERNEL])
+    phase("full_width_bc6h", blocks=hdr.shape[0], chunk=api.CHUNK_BC6H,
+          encode_ms=times, encode_ms_median=ms,
+          mtexels_per_s=hdr.shape[0] * 16 / (ms * 1e-3) / 1e6,
+          rmse=rmse, source_std=float(src.std()), peak_gib=peak_gib,
+          launches=launches[BC6H_KERNEL], kernel_ms=kernel_ms,
+          kernel_ms_per_launch=kernel_ms / launches[BC6H_KERNEL],
+          kernel_ms_by_aprec=per_group)
+    with Instrument(bc6h_kernel, (BC6H_KERNEL,), with_plain=True,
+                    plain_stride=hdr.shape[0] // 1024) as wide_bc6h:
+        encode_bc6h_full()
+        torch.cuda.synchronize()
+    detail["full_width_bc6h_launches"] = full_bc6h.detail
+    del out, again
+
+    full = {**{k: full_run for k in BC7_KERNELS}, BC6H_KERNEL: full_bc6h}
+    wides = {**{k: wide for k in BC7_KERNELS}, BC6H_KERNEL: wide_bc6h}
+    for name in KERNELS:
+        w = wides[name]
+        phase("kernel_vs_plain_full_width", kernel=name,
+              launches=len(w.events[name]),
+              blocks_compared=w.blocks_compared[name], equal=w.equal[name],
+              max_abs_err=w.max_err[name])
+        equal[name] &= w.equal[name]
+        max_err[name] = max(max_err[name], w.max_err[name])
+    if not all(equal.values()):
+        raise SystemExit("a kernel disagrees with its plain version at the "
+                         "full width")
 
     if args.profile:
-        prof = profile_encode(api, tex_dev, opts, dev, args.out)
-        detail["profile"] = prof
-        phase("profile", wall_ms=prof["wall_ms"],
-              device_busy_ms=prof["device_busy_ms"],
-              device_launches=prof["device_launches"], top=prof["top"][:8])
+        for label, encode in (("bc7", encode_bc7_full),
+                              ("bc6h", encode_bc6h_full)):
+            prof = profile_encode(encode, os.path.join(
+                args.out, f"profile_{label}.txt"))
+            detail[f"profile_{label}"] = prof
+            phase(f"profile_{label}", wall_ms=prof["wall_ms"],
+                  device_busy_ms=prof["device_busy_ms"],
+                  device_launches=prof["device_launches"],
+                  top=prof["top"][:8])
 
-    # optional chunk sweep
+    # optional chunk sweeps
     if args.chunks:
-        sweep = {}
-        default_chunk = api.CHUNK_BC7
-        try:
-            for chunk in [int(c) for c in args.chunks.split(",")]:
-                api.CHUNK_BC7 = chunk
-                api.encode_bc7(tex_dev, opts, quality=50, device=dev)
-                torch.cuda.synchronize()
-                runs = []
-                for _ in range(3):
-                    torch.cuda.reset_peak_memory_stats(dev)
-                    s = torch.cuda.Event(enable_timing=True)
-                    e = torch.cuda.Event(enable_timing=True)
-                    s.record()
-                    api.encode_bc7(tex_dev, opts, quality=50, device=dev)
-                    e.record()
-                    torch.cuda.synchronize()
-                    runs.append(s.elapsed_time(e))
-                sweep[chunk] = dict(
-                    encode_ms=runs,
-                    peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30)
-        finally:
-            api.CHUNK_BC7 = default_chunk
+        sweep = chunk_sweep(api, "CHUNK_BC7",
+                            [int(c) for c in args.chunks.split(",")],
+                            encode_bc7_full, dev)
         phase("chunk_sweep", results=sweep)
         detail["chunk_sweep"] = sweep
+    if args.chunks_bc6h:
+        sweep = chunk_sweep(api, "CHUNK_BC6H",
+                            [int(c) for c in args.chunks_bc6h.split(",")],
+                            encode_bc6h_full, dev)
+        phase("chunk_sweep_bc6h", results=sweep)
+        detail["chunk_sweep_bc6h"] = sweep
 
     # 6. the kernels line, the card, and the result
     kernels = []
     for name, meta in KERNELS.items():
-        nbytes, ops = full_run.work[name]
+        nbytes, ops = full[name].work[name]
         t_bytes = nbytes / H100_BYTES_PER_S * 1e3
         t_ops = ops / H100_F32_OPS_PER_S * 1e3
         kernels.append(dict(
             name=name, route="cuda", source=meta["source"],
             replaces=meta["replaces"], launches=launches[name],
-            max_abs_err=max(small_run.max_err[name], wide.max_err[name]),
-            ms=Instrument.total_ms(full_run.events[name]),
+            max_abs_err=max_err[name],
+            ms=Instrument.total_ms(full[name].events[name]),
             plain_ms=plain_ms[name],
             bound_ms=max(t_bytes, t_ops),
             bound_by="bytes" if t_bytes >= t_ops else "operations",
             library_ms=None,
-            equal=small_run.equal[name] and wide.equal[name],
-            plain_blocks=len(golden_px),
+            equal=equal[name],
+            plain_blocks=plain_blocks[name],
             ms_at_plain_blocks=kernel_small_ms[name],
             bytes=nbytes, ops=ops))
     detail["kernels"] = kernels

@@ -1,4 +1,4 @@
-"""convectionkernels_tpu_torch — BC7 texture block compression in PyTorch
+"""convectionkernels_tpu_torch — BC7 and BC6H texture block compression in PyTorch
 with hand-written CUDA kernels for NVIDIA Hopper.
 
 The PyTorch port of convectionkernels_tpu (which stays the reference): the
@@ -6,7 +6,8 @@ same bytes for the same blocks, Options and BC7 plan. It imports torch and
 numpy only, never JAX or the reference package.
 """
 
-from .api import decode_bc7, encode_bc7
+from .api import (decode_bc6hs, decode_bc6hu, decode_bc7, encode_bc6hs,
+                  encode_bc6hu, encode_bc7)
 from .bc7_plan import (BC7EncodingPlan, BC7FineTuningParams,
                        plan_from_fine_tuning_params, plan_from_quality)
 from .options import Flags, Options
@@ -16,7 +17,11 @@ __all__ = [
     "BC7FineTuningParams",
     "Flags",
     "Options",
+    "decode_bc6hs",
+    "decode_bc6hu",
     "decode_bc7",
+    "encode_bc6hs",
+    "encode_bc6hu",
     "encode_bc7",
     "plan_from_fine_tuning_params",
     "plan_from_quality",

@@ -1,14 +1,14 @@
-"""Public BC7 API.
+"""Public BC7 and BC6H API.
 
-The PyTorch counterpart of cvtt::Kernels' BC7 entry points
+The PyTorch counterpart of cvtt::Kernels' BC7 and BC6H entry points
 (ConvectionKernels.h:236-277, ConvectionKernels_API.cpp). Every entry point
 takes a batch of N blocks ([N, 16, 4] pixels) and runs on `device`: the
 CUDA card by default, where the hand-written kernels run, or the CPU when
 the caller asks for it, where their plain PyTorch versions run.
 
 Blocks are independent, so a large batch is encoded in host-side chunks
-of CHUNK_BC7 blocks, which bounds the device memory of the per-candidate
-kernel outputs.
+of CHUNK_BC7 or CHUNK_BC6H blocks, which bounds the device memory of the
+per-candidate kernel outputs.
 """
 
 from __future__ import annotations
@@ -17,7 +17,7 @@ import numpy as np
 import torch
 
 from . import bc7_plan
-from .models import bc7, decode
+from .models import bc6h, bc7, decode
 from .options import Options
 
 # Blocks per encode chunk. On an H100 the encode's host-side torch ops cost
@@ -25,6 +25,11 @@ from .options import Options
 # per-candidate outputs (~90 KB a block at q50) crowd device memory;
 # PERF.md records the sweep this value comes from.
 CHUNK_BC7 = 65536
+
+# Blocks per BC6H encode chunk. At the default 12 meta rounds a partitioned
+# group's kernel outputs take 30 KB a block and its combine grids several
+# times that; PERF.md records the sweep on an H100 this value comes from.
+CHUNK_BC6H = 65536
 
 
 def resolve_device(device=None) -> torch.device:
@@ -37,15 +42,24 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-def _as_blocks(pixels, device) -> torch.Tensor:
+def _as_blocks(pixels, device, dtype=torch.uint8) -> torch.Tensor:
     t = torch.as_tensor(np.asarray(pixels) if not torch.is_tensor(pixels)
                         else pixels)
     if t.dim() != 3 or t.shape[1] != 16 or t.shape[2] != 4:
         raise ValueError(f"expected [N, 16, 4] pixel blocks, got "
                          f"{tuple(t.shape)}")
-    if t.dtype != torch.uint8:
-        raise TypeError(f"expected uint8 pixels, got {t.dtype}")
+    if t.dtype != dtype:
+        raise TypeError(f"expected {dtype} pixels, got {t.dtype}")
     return t.to(device)
+
+
+def _chunked(pack_chunk, blocks, chunk: int) -> torch.Tensor:
+    """`pack_chunk` over `chunk`-sized slices of the block axis."""
+    outs = [pack_chunk(blocks[i:i + chunk])
+            for i in range(0, blocks.shape[0], chunk)]
+    if not outs:
+        return torch.zeros((0, 16), dtype=torch.uint8, device=blocks.device)
+    return outs[0] if len(outs) == 1 else torch.cat(outs, dim=0)
 
 
 def encode_bc7(pixels, options: Options = Options(), plan=None, quality=None,
@@ -62,12 +76,9 @@ def encode_bc7(pixels, options: Options = Options(), plan=None, quality=None,
                 else bc7_plan.BC7EncodingPlan())
     blocks = _as_blocks(pixels, dev)
     cw = options.channel_weights()
-    outs = [bc7.pack(blocks[i:i + CHUNK_BC7], options.flags, cw, plan,
-                     options.refine_rounds_bc7)
-            for i in range(0, blocks.shape[0], CHUNK_BC7)]
-    if not outs:
-        return torch.zeros((0, 16), dtype=torch.uint8, device=dev)
-    return outs[0] if len(outs) == 1 else torch.cat(outs, dim=0)
+    return _chunked(lambda b: bc7.pack(b, options.flags, cw, plan,
+                                       options.refine_rounds_bc7),
+                    blocks, CHUNK_BC7)
 
 
 def decode_bc7(blocks, device=None) -> torch.Tensor:
@@ -77,3 +88,48 @@ def decode_bc7(blocks, device=None) -> torch.Tensor:
     if torch.is_tensor(blocks):
         blocks = blocks.cpu().numpy()
     return torch.as_tensor(decode.decode_bc7(np.asarray(blocks))).to(dev)
+
+
+def _encode_bc6h(pixels, options: Options, signed: bool, device):
+    dev = resolve_device(device)
+    blocks = _as_blocks(pixels, dev, torch.int16)
+    cw = options.channel_weights()
+    return _chunked(lambda b: bc6h.pack(b, options.flags, cw, signed,
+                                        options.seed_points,
+                                        options.refine_rounds_bc6h),
+                    blocks, CHUNK_BC6H)
+
+
+def encode_bc6hu(pixels, options: Options = Options(),
+                 device=None) -> torch.Tensor:
+    """Kernels::EncodeBC6HU (API.cpp:56-69), unsigned HDR: int16 half-float
+    bits [N, 16, 4] (alpha ignored) -> uint8 [N, 16] on `device`."""
+    return _encode_bc6h(pixels, options, False, device)
+
+
+def encode_bc6hs(pixels, options: Options = Options(),
+                 device=None) -> torch.Tensor:
+    """Kernels::EncodeBC6HS (API.cpp:71-84), signed HDR: int16 half-float
+    bits [N, 16, 4] -> uint8 [N, 16] on `device`."""
+    return _encode_bc6h(pixels, options, True, device)
+
+
+def _decode_bc6h(blocks, signed: bool, device):
+    dev = resolve_device(device)
+    if torch.is_tensor(blocks):
+        blocks = blocks.cpu().numpy()
+    return torch.as_tensor(decode.decode_bc6h(np.asarray(blocks),
+                                              signed)).to(dev)
+
+
+def decode_bc6hu(blocks, device=None) -> torch.Tensor:
+    """Kernels::DecodeBC6HU (API.cpp:300-310): uint8 [N, 16] -> int16
+    half-float bits [N, 16, 4] (alpha 1.0) on `device`. Decoding runs on
+    the host in NumPy."""
+    return _decode_bc6h(blocks, False, device)
+
+
+def decode_bc6hs(blocks, device=None) -> torch.Tensor:
+    """Kernels::DecodeBC6HS (API.cpp:312-322): the signed counterpart of
+    decode_bc6hu."""
+    return _decode_bc6h(blocks, True, device)

@@ -26,7 +26,8 @@ _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "torch_kernels")
 
-SOURCES = ("shape_pca", "single_plane", "dual_plane", "exact_probe")
+SOURCES = ("shape_pca", "single_plane", "dual_plane", "bc6h_group",
+           "exact_probe")
 HEADERS = ("bc7_common.cuh",)
 
 NVCC_FLAGS = (
@@ -48,6 +49,9 @@ SIGNATURES = {
                       _I, _I, _P, _P, _P, _P, _P, _P]),
     "dual_plane": ("ck_dual_plane_best",
                    [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
+                    _P, _P, _P]),
+    "bc6h_group": ("ck_bc6h_group",
+                   [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P,
                     _P, _P, _P]),
     "exact_probe": ("ck_exact_probe", [_P, _P, _I, _P, _P, _P]),
 }

@@ -51,13 +51,27 @@ class LexBest:
         self.rank = rank
         self.payload = payload
 
-    def update(self, error, rank, payload: dict):
+    @classmethod
+    def empty(cls, shape, payload_spec: dict, device):
+        """No candidate yet: FLT_MAX error, BIG_RANK, zero int32 payloads of
+        shape `shape + payload_spec[key]`."""
+        error = torch.full(shape, lanes.FLT_MAX, dtype=F32, device=device)
+        rank = torch.full(shape, BIG_RANK, dtype=I32, device=device)
+        payload = {k: torch.zeros(shape + extra, dtype=I32, device=device)
+                   for k, extra in payload_spec.items()}
+        return cls(error, rank, payload)
+
+    def update(self, error, rank, payload: dict, extra_valid=None):
         better = (error < self.error) | ((error == self.error)
                                          & (rank < self.rank))
+        if extra_valid is not None:
+            better = better & extra_valid
         self.error = torch.where(better, error, self.error)
         self.rank = torch.where(better, rank, self.rank)
         for k in self.payload:
-            self.payload[k] = torch.where(better, payload[k], self.payload[k])
+            extra = self.payload[k].dim() - better.dim()
+            b = better.reshape(better.shape + (1,) * extra)
+            self.payload[k] = torch.where(b, payload[k], self.payload[k])
 
 
 def _gather_cols(arr, col):

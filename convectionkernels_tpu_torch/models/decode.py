@@ -1,7 +1,8 @@
-"""BC7 block decoder.
+"""BC7 and BC6H block decoders.
 
-Vectorized NumPy equivalent of the reference's verification decoder
-(BC7Computer::UnpackOne, ConvectionKernels_BC67.cpp:2206-2445). Pure
+Vectorized NumPy equivalents of the reference's verification decoders
+(BC7Computer::UnpackOne, ConvectionKernels_BC67.cpp:2206-2445, and
+BC6HComputer::UnpackOne, :3053-3260). Pure
 integer math on the host: a correctness oracle and round-trip tool, not a
 hot path.
 """
@@ -10,7 +11,9 @@ from __future__ import annotations
 
 import numpy as np
 
+from ..tables import bc6h_layout
 from ..tables import bc7_geometry as geom
+from .bc6h_common import HDR_MODES
 from .bc7_common import MODE_INFO
 
 WEIGHTS = {
@@ -208,4 +211,134 @@ def _decode_bc7_mode(blocks: np.ndarray, mode: int) -> np.ndarray:
                 pixel[m, 3] = tmp
 
         out[:, px] = pixel.astype(np.uint8)
+    return out
+
+
+def _sign_extend(v, bits):
+    mask = np.int64(1) << (bits - 1)
+    return (v ^ mask) - mask
+
+
+def decode_bc6h(blocks, signed: bool = False) -> np.ndarray:
+    """DecodeBC6HU/S: uint8 [N, 16] -> int16 [N, 16, 4] (half-float bits)."""
+    blocks = np.asarray(blocks, dtype=np.uint8)
+    n = len(blocks)
+    out = np.zeros((n, 16, 4), dtype=np.int16)
+    out[:, :, 3] = 0x3C00
+
+    b0 = blocks[:, 0].astype(np.int64)
+    mode_bits = np.where((b0 & 3) < 2, b0 & 3, b0 & 0x1F)
+    mode = np.full(n, -1, dtype=np.int64)
+    for mi, (mode_id, *_rest) in enumerate(HDR_MODES):
+        mode = np.where(mode_bits == mode_id, mi, mode)
+
+    for mi in range(len(HDR_MODES)):
+        sel = mode == mi
+        if not sel.any():
+            continue
+        out[sel] = _decode_bc6h_mode(blocks[sel], mi, signed)
+    return out
+
+
+def _decode_bc6h_mode(blocks: np.ndarray, mode_idx: int,
+                      signed: bool) -> np.ndarray:
+    mode_id, partitioned, transformed, aprec, bprec = HDR_MODES[mode_idx]
+    n = len(blocks)
+    r = _BitReader(blocks)
+
+    header_bits = 82 if partitioned else 65
+    fields = {f: np.zeros(n, dtype=np.int64)
+              for f in ("m", "d", "rw", "rx", "ry", "rz", "gw", "gx", "gy",
+                        "gz", "bw", "bx", "by", "bz")}
+    for (field, src, dst, length) in bc6h_layout.LAYOUTS[mode_idx]:
+        chunk = r.peek(np.full(n, dst, dtype=np.int64), length)
+        fields[field] |= chunk << src
+
+    partition = fields["d"]
+    eps = np.zeros((n, 2, 2, 3), dtype=np.int64)
+    for ch, pre in enumerate("rgb"):
+        eps[:, 0, 0, ch] = fields[pre + "w"]
+        eps[:, 0, 1, ch] = fields[pre + "x"]
+        eps[:, 1, 0, ch] = fields[pre + "y"]
+        eps[:, 1, 1, ch] = fields[pre + "z"]
+
+    num_subsets = 2 if partitioned else 1
+    index_bits = 3 if partitioned else 4
+    fixup1 = geom.FIXUP_INDEXES_2[partition] if partitioned \
+        else np.zeros(n, dtype=np.int64)
+
+    indexes = np.zeros((n, 16), dtype=np.int64)
+    pos = np.full(n, header_bits, dtype=np.int64)
+    for px in range(16):
+        width = np.full(n, index_bits, dtype=np.int64)
+        width -= ((px == 0) | (px == fixup1)).astype(np.int64)
+        indexes[:, px] = r.peek(pos, width)
+        pos += width
+
+    for ch in range(3):
+        if signed:
+            eps[:, 0, 0, ch] = _sign_extend(eps[:, 0, 0, ch], aprec)
+        if transformed or signed:
+            eps[:, 0, 1, ch] = _sign_extend(eps[:, 0, 1, ch], bprec[ch])
+            if partitioned:
+                eps[:, 1, 0, ch] = _sign_extend(eps[:, 1, 0, ch], bprec[ch])
+                eps[:, 1, 1, ch] = _sign_extend(eps[:, 1, 1, ch], bprec[ch])
+
+    if transformed:
+        wrap = (1 << aprec) - 1
+        for ch in range(3):
+            eps[:, 0, 1, ch] = (eps[:, 0, 0, ch] + eps[:, 0, 1, ch]) & wrap
+            if signed:
+                eps[:, 0, 1, ch] = _sign_extend(eps[:, 0, 1, ch], aprec)
+            if partitioned:
+                for s_epi in ((1, 0), (1, 1)):
+                    v = (eps[:, 0, 0, ch]
+                         + eps[:, s_epi[0], s_epi[1], ch]) & wrap
+                    if signed:
+                        v = _sign_extend(v, aprec)
+                    eps[:, s_epi[0], s_epi[1], ch] = v
+
+    # unquantize (BC67.cpp:3195-3244)
+    for subset in range(num_subsets):
+        for epi in range(2):
+            for ch in range(3):
+                v = eps[:, subset, epi, ch]
+                if signed:
+                    if aprec < 16:
+                        s = v < 0
+                        comp = np.abs(v)
+                        unq = np.where(
+                            comp == 0, 0,
+                            np.where(comp >= (1 << (aprec - 1)) - 1, 0x7FFF,
+                                     ((comp << 15) + 0x4000) >> (aprec - 1)))
+                        v = np.where(s, -unq, unq)
+                else:
+                    if aprec < 15:
+                        v = np.where(
+                            v == 0, 0,
+                            np.where(v == (1 << aprec) - 1, 0xFFFF,
+                                     ((v << 16) + 0x8000) >> aprec))
+                eps[:, subset, epi, ch] = v
+
+    weights = WEIGHTS[index_bits]
+    out = np.zeros((n, 16, 4), dtype=np.int16)
+    out[:, :, 3] = 0x3C00
+    for px in range(16):
+        if partitioned:
+            subset = np.asarray((geom.PARTITION_MAP_2[partition] >> px) & 1,
+                                dtype=np.int64)
+        else:
+            subset = np.zeros(n, dtype=np.int64)
+        w = weights[indexes[:, px]]
+        ep = eps[np.arange(n), subset]
+        for ch in range(3):
+            comp = ((64 - w) * ep[:, 0, ch] + w * ep[:, 1, ch] + 32) >> 6
+            if signed:
+                comp = np.where(comp < 0, -((-comp * 31) >> 5),
+                                (comp * 31) >> 5)
+                sign = np.where(comp < 0, 0x8000, 0)
+                comp = np.abs(comp) | sign
+            else:
+                comp = (comp * 31) >> 6
+            out[:, px, ch] = comp.astype(np.uint16).astype(np.int16)
     return out

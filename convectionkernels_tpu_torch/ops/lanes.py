@@ -1,4 +1,4 @@
-"""Lane math: exact float/int semantics shared by the BC7 encoder.
+"""Lane math: exact float/int semantics shared by the BC7 and BC6H encoders.
 
 The batched form of the reference's ParallelMath layer
 (ConvectionKernels_ParallelMath.h). Every value is a torch tensor whose
@@ -52,9 +52,55 @@ def sq_diff_int(a, b):
     return d * d
 
 
-def lex_min_with_index(x, dim: int):
-    """(min value, first-occurrence index) over `dim` as an explicit
-    compare chain: strict-less on value, ties keep the earlier index."""
+def twoscl_half_to_float(v):
+    """TwosCLHalfToFloat (scalar build, ParallelMath.h:1727-1750).
+
+    Converts the internal two's-complement-sign half-float representation
+    (2CL, an int32 holding a 16-bit value) to float32 with integer ops and
+    a bit-cast, including the denormal correction.
+
+    Mirrors the scalar build exactly: signBits is derived from |v|, so it
+    is zero except for v == -32768, and the result is the magnitude (the
+    SSE2 build keeps v's sign). The left shifts wrap in int32.
+    """
+    abs_v = v.abs()
+    sign_bits = abs_v & (-32768)
+    mantissa = abs_v & 0x03FF
+    exponent = abs_v & 0x7C00
+    is_denormal = exponent == 0
+    exponent = (exponent >> 3) + 14336
+    denorm_corr_bits = torch.where(
+        is_denormal, sign_bits | 14336, torch.zeros_like(v)) << 16
+    f_bits = ((exponent | sign_bits) << 16) | (mantissa << 13)
+    return f_bits.view(F32) - denorm_corr_bits.view(F32)
+
+
+def first_argmin(x, dim: int):
+    """First-occurrence argmin over `dim` as two plain min-reduces: the
+    value min, then the least index among the positions that reach it."""
+    m = torch.amin(x, dim=dim, keepdim=True)
+    shape = [1] * x.dim()
+    shape[dim] = x.shape[dim]
+    iota = torch.arange(x.shape[dim], dtype=I32, device=x.device).view(shape)
+    big = torch.full((), x.shape[dim], dtype=I32, device=x.device)
+    return torch.amin(torch.where(x == m, iota, big), dim=dim)
+
+
+def lex_min_with_index(x, dim):
+    """(min value, first-occurrence index) over `dim`: strict-less on
+    value, ties keep the earlier index.
+
+    `dim` is an int, reduced as an explicit compare chain, or a tuple of
+    axes: the index is then the row-major flat index over those axes in
+    the order given (the first axis carries the largest stride), found
+    with two min-reduces over the flattened axes.
+    """
+    if not isinstance(dim, int):
+        dims = [d + x.dim() if d < 0 else d for d in dim]
+        keep = [d for d in range(x.dim()) if d not in dims]
+        flat = x.permute(*keep, *dims).reshape(
+            *[x.shape[d] for d in keep], -1)
+        return torch.amin(flat, dim=-1), first_argmin(flat, -1)
     n = x.shape[dim]
     best = x.select(dim, 0)
     idx = torch.zeros(best.shape, dtype=I32, device=x.device)

@@ -101,3 +101,14 @@ class EndpointRefiner:
         ep1 = [lanes.round_and_convert_to_int_nearest(
             lanes.clamp(f1[ch], 0.0, 255.0)) for ch in range(nrc)]
         return ep0, ep1
+
+    def get_refined_endpoints_hdr(self, signed: bool):
+        """GetRefinedEndpointsHDR (EndpointRefiner.h:159-175) -> int32 eps
+        clamped to the 2CL half range."""
+        f0, f1 = self.get_refined_endpoints()
+        lo = -31743.0 if signed else 0.0
+        ep0 = [lanes.round_and_convert_to_int_nearest(
+            lanes.clamp(f, lo, 31743.0)) for f in f0]
+        ep1 = [lanes.round_and_convert_to_int_nearest(
+            lanes.clamp(f, lo, 31743.0)) for f in f1]
+        return ep0, ep1

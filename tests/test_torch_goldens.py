@@ -1,4 +1,5 @@
-"""JAX-produced BC7 goldens for the torch port, and their re-derivation.
+"""JAX-produced BC7 and BC6H goldens for the torch port, and their
+re-derivation.
 
 The JAX package encodes a BC7 configuration on a CPU in 25-110 s (trace
 plus compile), so the default tier holds the port against bytes the JAX
@@ -14,7 +15,15 @@ block (62): XLA's compiled program lands one ulp under a 0.5 boundary in a
 refine solve that the op-by-op run and a float32 scalar emulation
 (tests/test_torch_bc7.py) put above it. The port is held to `blocks`.
 
-Regenerate the files with:  python -m tests.test_torch_goldens
+The BC6H golden (bc6h_golden.npz) holds, for each case of BC6H_CASES, the
+int16 half-float pixels, the case's configuration (`config`: flags, seed
+points, refine rounds, signed) and, as for q50, two sets of bytes: `api_blocks`
+from the JAX package's jitted `encode_bc6hu` / `encode_bc6hs` under the
+case's Options, and `blocks` from its `models.bc6h.pack` run op by op. They
+differ in one block (27 of `edge_signed`), where the compiled program picks
+another candidate of the aPrec-6 group; the port is held to `blocks`.
+
+Regenerate the files with:  python -m tests.test_torch_goldens [bc7|bc6h]
 """
 
 from __future__ import annotations
@@ -30,6 +39,7 @@ TESTDATA = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "convectionkernels_tpu_torch", "testdata")
 Q50_PATH = os.path.join(TESTDATA, "bc7_q50_golden.npz")
 LIGHT_PATH = os.path.join(TESTDATA, "bc7_light_golden.npz")
+BC6H_PATH = os.path.join(TESTDATA, "bc6h_golden.npz")
 
 LIGHT = dict(seed_points=1, refine_rounds_s3tc=1, refine_rounds_iic=1,
              refine_rounds_bc7=1, refine_rounds_bc6h=1)
@@ -47,6 +57,83 @@ LIGHT_CASES = (
     ("single_color", "rgb", DEFAULT | SINGLE_COLOR),
     ("punch_through", "punch", DEFAULT | PUNCH),
 )
+
+
+BC6H_FAST = 0x040     # Flags.BC6H_FAST_INDEXING
+UNIFORM = 0x200       # Flags.UNIFORM
+
+# (name, corpus, signed, flags, seed_points, refine_rounds_bc6h) of the BC6H
+# goldens; "default" is the 4 x 3 rounds of the default Options
+BC6H_CASES = (
+    ("light", "light", False, DEFAULT, 1, 1),
+    ("rounds22", "hdr128", False, DEFAULT, 2, 2),
+    ("signed_fast", "signed", True, DEFAULT | BC6H_FAST, 2, 2),
+    ("uniform", "hdr32", False, DEFAULT | UNIFORM, 2, 2),
+    ("edge_unsigned", "edge", False, DEFAULT, 2, 2),
+    ("edge_signed", "edge", True, DEFAULT, 2, 2),
+    ("default", "hdr16", False, DEFAULT, 4, 3),
+)
+
+
+def hdr_blocks(n, seed):
+    """Unsigned HDR blocks as int16 half-float bits: uniform values in
+    [0, 16) with alpha 1.0, the first quarter smooth (a base colour plus a
+    small spread) so that endpoint dedup and near-ties occur."""
+    rng = np.random.default_rng(seed)
+    vals = rng.uniform(0, 16.0, size=(n, 16, 4)).astype(np.float16)
+    vals[..., 3] = np.float16(1.0)
+    base = rng.uniform(0, 8.0, size=(n // 4, 1, 4)).astype(np.float16)
+    vals[: n // 4] = base + rng.uniform(
+        0, 0.25, size=(n // 4, 16, 4)).astype(np.float16)
+    return vals.view(np.int16)
+
+
+def hdr_signed_blocks(n, seed):
+    """HDR blocks with values of both signs, the first quarter smooth."""
+    rng = np.random.default_rng(seed)
+    vals = rng.uniform(-8.0, 8.0, size=(n, 16, 4)).astype(np.float16)
+    base = rng.uniform(-4.0, 4.0, size=(n // 4, 1, 4)).astype(np.float16)
+    vals[: n // 4] = base + rng.uniform(
+        -0.25, 0.25, size=(n // 4, 16, 4)).astype(np.float16)
+    vals[..., 3] = np.float16(1.0)
+    return vals.view(np.int16)
+
+
+def hdr_edge_blocks(n, seed):
+    """Blocks of negative, denormal, zero and above-31743-magnitude halves
+    (infinities and NaN bit patterns included), mixed with ordinary ones."""
+    rng = np.random.default_rng(seed)
+    bits = hdr_signed_blocks(n, seed + 1).copy()
+    q = n // 4
+    sign = (rng.integers(0, 2, size=(q, 16, 3)) << 15)
+    denormal = rng.integers(0, 0x400, size=(q, 16, 3)) | sign
+    bits[:q, :, :3] = denormal.astype(np.uint16).view(np.int16)
+    bits[q] = 0                                   # all +0.0
+    bits[q + 1, :, :3] = np.int16(-32768)         # all -0.0
+    big = rng.integers(0x7800, 0x8000, size=(q, 16, 3)) | (
+        rng.integers(0, 2, size=(q, 16, 3)) << 15)
+    hit = rng.random(size=(q, 16, 3)) < 0.3
+    tail = bits[2 * q:3 * q, :, :3]
+    bits[2 * q:3 * q, :, :3] = np.where(
+        hit, big.astype(np.uint16).view(np.int16), tail)
+    bits[..., 3] = np.float16(1.0).view(np.int16)
+    return bits
+
+
+def bc6h_corpus(name):
+    if name == "light":       # tests/test_light_options.py::test_bc6h_light
+        rng = np.random.default_rng(111)
+        return rng.uniform(0, 8.0, size=(16, 16, 4)).astype(
+            np.float16).view(np.int16)
+    if name == "hdr128":      # tests/test_bc6h_kernel.py, interpret test
+        return hdr_blocks(128, seed=11)
+    if name == "hdr32":
+        return hdr_blocks(32, seed=13)
+    if name == "hdr16":
+        return hdr_blocks(16, seed=17)
+    if name == "signed":
+        return hdr_signed_blocks(32, seed=15)
+    return hdr_edge_blocks(32, seed=19)
 
 
 def punch_through_blocks(n, seed):
@@ -95,6 +182,29 @@ def jax_light_bytes(px, flags):
                                     quality=5))
 
 
+def jax_bc6h_bytes(px, signed, flags, seed_points, refine_rounds):
+    import convectionkernels_tpu as ck
+    opts = ck.Options(flags=flags, seed_points=seed_points,
+                      refine_rounds_bc6h=refine_rounds)
+    fn = ck.encode_bc6hs if signed else ck.encode_bc6hu
+    return np.asarray(fn(px, opts))
+
+
+def jax_bc6h_op_by_op(px, signed, flags, seed_points, refine_rounds):
+    from convectionkernels_tpu.models import bc6h
+    from convectionkernels_tpu.options import Options
+    o = Options(flags=flags)
+    return np.asarray(bc6h.pack(px, flags, o.channel_weights(), signed,
+                                seed_points, refine_rounds))
+
+
+def load_bc6h(name):
+    """(pixels, bytes the port must give, bytes of the jitted JAX API)."""
+    with np.load(BC6H_PATH) as z:
+        return (z[f"{name}_pixels"], z[f"{name}_blocks"],
+                z[f"{name}_api_blocks"])
+
+
 def load_q50():
     """(pixels, bytes the port must give, bytes of the jitted JAX API)."""
     with np.load(Q50_PATH) as z:
@@ -124,10 +234,39 @@ def test_light_golden_matches_jax(case):
     np.testing.assert_array_equal(jax_light_bytes(px, flags), blocks)
 
 
-def _write():
-    import tests.conftest  # noqa: F401  (exactness XLA flags, CPU platform)
+@pytest.mark.slow
+@pytest.mark.parametrize("case", BC6H_CASES, ids=[c[0] for c in BC6H_CASES])
+def test_bc6h_golden_matches_jax(case):
+    name, corpus, signed, flags, seed_points, refine_rounds = case
+    px, blocks, api_blocks = load_bc6h(name)
+    np.testing.assert_array_equal(px, bc6h_corpus(corpus))
+    with np.load(BC6H_PATH) as z:
+        assert z[f"{name}_config"].tolist() == [flags, seed_points,
+                                                refine_rounds, int(signed)]
+    np.testing.assert_array_equal(
+        jax_bc6h_bytes(px, signed, flags, seed_points, refine_rounds),
+        api_blocks)
+    np.testing.assert_array_equal(
+        jax_bc6h_op_by_op(px, signed, flags, seed_points, refine_rounds),
+        blocks)
 
-    os.makedirs(TESTDATA, exist_ok=True)
+
+def _write_bc6h():
+    out = {}
+    for name, corpus, signed, flags, seed_points, refine_rounds in BC6H_CASES:
+        px = bc6h_corpus(corpus)
+        out[f"{name}_pixels"] = px
+        out[f"{name}_config"] = np.int32([flags, seed_points, refine_rounds,
+                                          signed])
+        out[f"{name}_api_blocks"] = jax_bc6h_bytes(
+            px, signed, flags, seed_points, refine_rounds)
+        out[f"{name}_blocks"] = jax_bc6h_op_by_op(
+            px, signed, flags, seed_points, refine_rounds)
+        print("bc6h", name, flush=True)
+    np.savez_compressed(BC6H_PATH, **out)
+
+
+def _write_bc7():
     light = {}
     for name, corpus, flags in LIGHT_CASES:
         px = light_corpus(corpus)
@@ -142,5 +281,16 @@ def _write():
     print("q50", flush=True)
 
 
+def _write(which=("bc7", "bc6h")):
+    import tests.conftest  # noqa: F401  (exactness XLA flags, CPU platform)
+
+    os.makedirs(TESTDATA, exist_ok=True)
+    if "bc7" in which:
+        _write_bc7()
+    if "bc6h" in which:
+        _write_bc6h()
+
+
 if __name__ == "__main__":
-    _write()
+    import sys
+    _write(tuple(sys.argv[1:]) or ("bc7", "bc6h"))
