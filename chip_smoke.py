@@ -27,12 +27,17 @@ Phases, each printed on its own line; any failure exits nonzero:
      then each kernel, launched at the full width, against its plain
      version on 1,024 of its blocks:
        - BC7: a 1024x1024 RGBA texture (65,536 blocks) through encode_bc7
-         at quality 50 with default Options, decoded back;
+         at quality 50 with default Options, decoded back; then
+         single_plane_mode_best (each mode's launch) and dual_plane_best
+         timed alone, 20 back-to-back launches on the inputs captured from
+         the encode;
        - BC6H: a 1024x1024 RGBA16F texture (65,536 blocks of half floats
          uniform in [0, 16), alpha 1.0) through encode_bc6hu with default
          Options (4 x 3 meta rounds, slow indexing), decoded back;
-  6. one JSON line describing every kernel, the card's name and power
-     limit, and the final {"ok": true, ...} line.
+  6. ptxas's registers, stack and spills of the two search kernels, one
+     JSON line describing every kernel (bounds from the work model below,
+     at the FMA-free issue rate), the card's name and power limit, and the
+     final {"ok": true, ...} line.
 
 Needs the CUDA toolkit (nvcc) and a card; imports nothing of JAX.
 """
@@ -51,7 +56,13 @@ import time
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 H100_BYTES_PER_S = 3.35e12   # HBM3, H100 SXM data sheet
-H100_F32_OPS_PER_S = 67e12   # float32 outside the tensor cores, data sheet
+# The most lane operations the card can issue: each of an SM's 4 schedulers
+# issues one 32-lane warp instruction a clock, 132 SMs x 4 x 32 x 1.98 GHz
+# = 33.45e12 a second. The kernels are built with -fmad=false and the work
+# model counts every add and every multiply as one operation, so this, not
+# the data sheet's 67e12 float32 rate (which counts an FMA as two), is the
+# rate the operations bound is taken at.
+H100_ISSUE_LANE_OPS_PER_S = 132 * 4 * 32 * 1.98e9
 
 KERNELS = {
     "shape_pca": dict(
@@ -74,17 +85,27 @@ KERNELS = {
 BC7_KERNELS = tuple(k for k, v in KERNELS.items()
                     if v["module"] == "bc7_kernel")
 BC6H_KERNEL = "partitioned_group_meta_rounds"
+# kernels also timed alone, on the full-width inputs captured from the encode
+ALONE_KERNELS = ("single_plane_mode_best", "dual_plane_best")
+ALONE_LAUNCHES = 20
 
 
 # --- work model: bytes each launch must move, operations it must do --------
 # Operations are counted from the sources' arithmetic per lane (every
 # add, multiply, compare, select, shift and conversion is one operation),
-# over the lanes and member pixels these inputs have.
+# over the lanes and member pixels these inputs need: a lane whose result
+# is fixed before it starts (an invalid slot, a punch-through parity, a
+# dead dual-plane tweak) needs none.
 
 def _popcount(x):
     import numpy as np
     x = np.asarray(x, dtype=np.int64)
     return sum(((x >> i) & 1) for i in range(16))
+
+
+def _host(t):
+    import numpy as np
+    return t.cpu().numpy() if hasattr(t, "cpu") else np.asarray(t)
 
 
 def work_shape_pca(args):
@@ -104,44 +125,88 @@ def work_shape_pca(args):
     return nbytes, n * s * per
 
 
+def select_ops(nch):
+    """ck::Selector::select over nch channels: a subtract and a multiply a
+    channel, the adds between them, then the clamp's min and max, the
+    rounding's add and floor, and the conversion."""
+    return 3 * nch + 4
+
+
+def selector_init_ops(nch):
+    """ck::Selector::init over nch channels: two conversions, a subtract
+    and three multiplies a channel, the squared length's multiply a channel
+    and the adds between them, the zero test, its select and the divide."""
+    return 8 * nch + 2
+
+
 def work_single_plane(args):
+    """csrc/single_plane.cu: per lane the seeds, rounds and the winner
+    reduce; per member pixel the selection, error and refit terms, over
+    the mode's nrc channels (an RGB mode selects over 3). Only the lanes
+    whose slot is valid (lane_i[2] != 0) in the blocks whose punch-through
+    flag leaves their parity valid (pti == 0) are counted."""
     import numpy as np
-    mode, pix, base = args[0], args[1], args[2]
+    mode, pix, base, pti = args[0], args[1], args[2], args[5]
     lane_i, cpow, cfg, rounds = args[6], args[8], args[9], args[11]
     n, s = pix.shape[0], base.shape[1]
     k = lane_i.shape[1]
     rounds = max(rounds, 1)
     nrc = cfg["num_real_channels"]
-    members = _popcount(lane_i[3].cpu().numpy()).astype(np.int64)
+    lanes = _host(lane_i).astype(np.int64)
+    blocks_ok = (_host(pti) == 0).sum(axis=0)          # [4] per parity
+    weight = np.where(lanes[2] != 0, blocks_ok[lanes[1]], 0)
+    members = _popcount(lanes[3])
     if cfg["fast_indexing"]:
-        per_px = 16 + 3 + 9 * nrc
+        per_px = select_ops(nrc) + 3 + 9 * nrc
         finish = 8
     else:
-        per_px = 16 + 3 * (4 + 11 * nrc) + 10
+        per_px = select_ops(nrc) + 3 * (4 + 11 * nrc) + 10
         finish = 0
     per_px_refine = 5 + 3 * nrc
     per_lane = (12 * nrc
-                + rounds * (56 + 33 + finish + 6)
+                + rounds * (56 + selector_init_ops(nrc) + finish + 6)
                 + (rounds - 1) * (12 + 16 * nrc)
                 + 6 * int(np.log2(cpow)))
-    ops = n * (k * per_lane + int(members.sum())
-               * (rounds * per_px + (rounds - 1) * per_px_refine))
+    per_member = rounds * per_px + (rounds - 1) * per_px_refine
+    ops = int((weight * (per_lane + members * per_member)).sum())
     nbytes = (n * 64 * 4 + n * s * (32 + 4) + n * 16 + k * 28
               + n * k * 16)
     return nbytes, ops
 
 
+def single_plane_slot_efficiency(launches):
+    """The member-pixel work the lanes of single_plane_mode_best launches
+    need (valid slots only), over the lane slots csrc/single_plane.cu's
+    warps spend on it: a warp is one shape's segment of slots and walks
+    that shape's member pixels on every lane, an invalid slot's too."""
+    import numpy as np
+    need = spent = 0
+    for args in launches:
+        lanes = _host(args[6]).astype(np.int64)
+        members = _popcount(lanes[3])
+        need += int((members * (lanes[2] != 0)).sum())
+        spent += int(members.sum())
+    return need / spent if spent else 1.0
+
+
 def work_dual_plane(args):
-    pix, ci, rounds, fast = args[0], args[1], args[3], args[5]
+    """csrc/dual_plane.cu: the live lanes, and each distinct rotation's
+    pixels, PCA line and alpha range once per block, as the lanes of one
+    rotation share them (bc7_kernel.dual_plane_order, the kernel's own
+    work order, counts both)."""
+    from convectionkernels_tpu_torch.models import bc7_kernel
+    pix, ci, cf, rounds, fast = args[0], args[1], args[2], args[3], args[5]
     n, lanes = pix.shape[0], ci.shape[1]
     rounds = max(rounds, 1)
+    _, n_live, n_rot = bc7_kernel.dual_plane_order(_host(ci), _host(cf))
     pca3 = (16 * 7 + 5 + 16 * 21 + 8 * 24 + 11 + 16 * 12 + 21)
+    per_rotation = 16 * 12 + pca3
     per_px = 12 + 7 + ((3 + 27) + 11 if fast else 3 * (3 + 33 + 11) + 16)
-    per_lane = (16 * 12 + pca3 + 40
+    per_lane = (40
                 + rounds * (48 + 30 + 16 * per_px + 60)
                 + (rounds - 1) * (16 * 22 + 60))
-    nbytes = n * 64 * 4 + lanes * 33 * 4 + n * lanes * 176
-    return nbytes, n * lanes * per_lane
+    nbytes = n * 64 * 4 + lanes * (33 + 3) * 4 + n * lanes * 176
+    return nbytes, n * (n_rot * per_rotation + n_live * per_lane)
 
 
 def work_bc6h_group(args):
@@ -236,13 +301,16 @@ class Instrument:
     """Wrap the kernel wrappers `names` of one module of models/ for one
     run: time each launch with CUDA events, add up its work model, and
     (when `with_plain`) run its plain version on the same inputs and
-    compare, on every block or on every `plain_stride`-th block only."""
+    compare, on every block or on every `plain_stride`-th block only; keep
+    the arguments of the kernels named in `capture`."""
 
-    def __init__(self, module, names, with_plain, plain_stride=None):
+    def __init__(self, module, names, with_plain, plain_stride=None,
+                 capture=()):
         self.mod = module
         self.names = tuple(names)
         self.with_plain = with_plain
         self.plain_stride = plain_stride
+        self.captured = {k: [] for k in capture}
         self.events = {k: [] for k in self.names}
         self.plain_events = {k: [] for k in self.names}
         self.work = {k: [0, 0] for k in self.names}
@@ -276,6 +344,8 @@ class Instrument:
                     label, position = LAUNCH_TAG[_name]
                     entry[label] = args[position]
                 self.detail.append(entry)
+                if _name in self.captured:
+                    self.captured[_name].append(args)
                 if self.with_plain:
                     rows = None
                     n_rows = args[ROW_ARGS[_name][0]].shape[0]
@@ -388,7 +458,7 @@ def kernel_entry_name(symbol):
         return None
     end += len("_kernel")
     name = None
-    for length in range(end, 0, -1):
+    for length in range(len("_kernel") + 1, end + 1):   # innermost name first
         start = end - length
         if start >= len(str(length)) and \
                 symbol[start - len(str(length)):start] == str(length):
@@ -402,18 +472,26 @@ def kernel_entry_name(symbol):
 
 
 def ptxas_usage(log_text):
-    """{kernel<template args>: "N registers, S bytes stack"} from the
-    -Xptxas -v output nvcc gave when it built a library."""
-    usage, entry = {}, None
+    """{kernel<template args>: "N registers, S bytes stack, X bytes spill
+    stores, Y bytes spill loads"} from the -Xptxas -v output nvcc gave when
+    it built a library."""
+    usage, entry, spills = {}, None, "0 bytes spill stores, 0 bytes spill loads"
     for line in log_text.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
             entry = kernel_entry_name(m.group(1))
+            spills = "0 bytes spill stores, 0 bytes spill loads"
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spills = (f"{m.group(1)} bytes spill stores, "
+                      f"{m.group(2)} bytes spill loads")
         m = re.search(r"Used (\d+) registers", line)
         if m and entry:
             stack = re.search(r"(\d+) bytes cumulative stack", line)
             usage[entry] = (f"{m.group(1)} registers, "
-                            f"{stack.group(1) if stack else 0} bytes stack")
+                            f"{stack.group(1) if stack else 0} bytes stack, "
+                            f"{spills}")
     return usage
 
 
@@ -425,6 +503,22 @@ def psnr(a, b):
 
 def phase(name, **fields):
     print(json.dumps(dict(phase=name, **fields)), flush=True)
+
+
+def time_alone(fn, args, count=ALONE_LAUNCHES):
+    """ms per launch of `count` back-to-back calls of fn(*args) after one
+    warm-up call, CUDA events around the whole run."""
+    import torch
+    fn(*args)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(count):
+        fn(*args)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / count
 
 
 def timed(fn, repeats=3):
@@ -646,9 +740,32 @@ def main(argv=None):
           launches=launches)
 
     # per-kernel device time at the full-width shapes (one more encode)
-    with Instrument(bc7_kernel, BC7_KERNELS, with_plain=False) as full_run:
+    with Instrument(bc7_kernel, BC7_KERNELS, with_plain=False,
+                    capture=ALONE_KERNELS) as full_run:
         encode_bc7_full()
         torch.cuda.synchronize()
+    detail["full_width_launches"] = full_run.detail_ms()
+    by_mode = {d["mode"]: d["ms"] for d in detail["full_width_launches"]
+               if d["kernel"] == "single_plane_mode_best"}
+
+    # the redesigned kernels alone: back-to-back launches on each launch's
+    # full-width inputs, without the encode's host work between them
+    alone = {}
+    for name in ALONE_KERNELS:
+        fn = getattr(bc7_kernel, name)
+        alone[name] = [time_alone(fn, a) for a in full_run.captured[name]]
+    alone_by_mode = {a[0]: ms for a, ms in zip(
+        full_run.captured["single_plane_mode_best"],
+        alone["single_plane_mode_best"])}
+    efficiency = single_plane_slot_efficiency(
+        full_run.captured["single_plane_mode_best"])
+    del full_run.captured
+    phase("kernels_alone", launches_each=ALONE_LAUNCHES,
+          single_plane_ms_by_mode=alone_by_mode,
+          single_plane_slot_efficiency=efficiency,
+          single_plane_ms_by_mode_in_encode=by_mode,
+          **{f"{k}_ms": sum(v) for k, v in alone.items()})
+    detail["kernels_alone"] = alone
 
     # each kernel launched at the full width against its plain version on
     # the same inputs, for 1,024 blocks spread over the texture
@@ -656,7 +773,6 @@ def main(argv=None):
                     plain_stride=tex.shape[0] // 1024) as wide:
         encode_bc7_full()
         torch.cuda.synchronize()
-    detail["full_width_launches"] = full_run.detail_ms()
     detail["small_launches"] = small_run.detail_ms()
     del out, again
 
@@ -763,7 +879,7 @@ def main(argv=None):
     for name, meta in KERNELS.items():
         nbytes, ops = full[name].work[name]
         t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-        t_ops = ops / H100_F32_OPS_PER_S * 1e3
+        t_ops = ops / H100_ISSUE_LANE_OPS_PER_S * 1e3
         kernels.append(dict(
             name=name, route="cuda", source=meta["source"],
             replaces=meta["replaces"], launches=launches[name],
@@ -773,6 +889,7 @@ def main(argv=None):
             bound_ms=max(t_bytes, t_ops),
             bound_by="bytes" if t_bytes >= t_ops else "operations",
             library_ms=None,
+            ms_alone=sum(alone[name]) if name in alone else None,
             equal=equal[name],
             plain_blocks=plain_blocks[name],
             ms_at_plain_blocks=kernel_small_ms[name],
@@ -785,6 +902,10 @@ def main(argv=None):
     detail["card"] = smi
     with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
         json.dump(detail, f, indent=1)
+    print(json.dumps({"ptxas_redesigned": {
+        k: v for k, v in usage.items()
+        if k.startswith(("single_plane_kernel", "dual_plane_kernel"))}}),
+        flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -20,6 +20,18 @@
 
 namespace ck {
 
+// v, kept in a register: ptxas can no longer recompute it from its inputs
+// where it is used (it does so inside pixel loops to save registers, at the
+// cost of more instructions there)
+__device__ __forceinline__ float opaque(float v) {
+    asm volatile("" : "+f"(v));
+    return v;
+}
+__device__ __forceinline__ int opaque(int v) {
+    asm volatile("" : "+r"(v));
+    return v;
+}
+
 __device__ __forceinline__ int round_int(float v) {
     return (int)floorf(v + 0.5f);
 }
@@ -34,20 +46,20 @@ __device__ __forceinline__ float safe_denom(float v) {
 }
 
 // pca.endpoint_selector + pca.get_endpoints for one pixel set.
-// pw[px*4 + ch] are pre-weighted pixels, w[px] the pixel weights, member
+// pw(px, ch) gives the pre-weighted pixels, w(px) the pixel weights, member
 // the pass-2 mask bits (all ones when there is no mask). cw holds the
 // channel weights the endpoints are divided by.
-template <int NCH>
-__device__ __forceinline__ void pca_endpoints(const float* pw, const float* w,
-                                              unsigned member, const float* cw,
-                                              float* base, float* offset) {
+template <int NCH, class PW, class W>
+__device__ __forceinline__ void pca_endpoints_at(PW pw, W w, unsigned member,
+                                                 const float* cw, float* base,
+                                                 float* offset) {
     float centroid[NCH];
     for (int ch = 0; ch < NCH; ++ch) centroid[ch] = 0.0f;
     float weight_total = 0.0f;
     for (int px = 0; px < 16; ++px) {
         for (int ch = 0; ch < NCH; ++ch)
-            centroid[ch] = centroid[ch] + pw[px * 4 + ch] * w[px];
-        weight_total = weight_total + w[px];
+            centroid[ch] = centroid[ch] + pw(px, ch) * w(px);
+        weight_total = weight_total + w(px);
     }
     float denom = safe_denom(weight_total);
     for (int ch = 0; ch < NCH; ++ch) centroid[ch] = centroid[ch] / denom;
@@ -57,11 +69,11 @@ __device__ __forceinline__ void pca_endpoints(const float* pw, const float* w,
     for (int i = 0; i < NCOV; ++i) cov[i] = 0.0f;
     for (int px = 0; px < 16; ++px) {
         float diff[NCH];
-        for (int ch = 0; ch < NCH; ++ch) diff[ch] = pw[px * 4 + ch] - centroid[ch];
+        for (int ch = 0; ch < NCH; ++ch) diff[ch] = pw(px, ch) - centroid[ch];
         int index = 0;
         for (int row = 0; row < NCH; ++row)
             for (int col = 0; col <= row; ++col) {
-                cov[index] = cov[index] + diff[row] * diff[col] * w[px];
+                cov[index] = cov[index] + diff[row] * diff[col] * w(px);
                 ++index;
             }
     }
@@ -93,9 +105,9 @@ __device__ __forceinline__ void pca_endpoints(const float* pw, const float* w,
 
     float min_dist = CK_FLT_MAX, max_dist = -CK_FLT_MAX;
     for (int px = 0; px < 16; ++px) {
-        float dist = direction[0] * (pw[px * 4] - centroid[0]);
+        float dist = direction[0] * (pw(px, 0) - centroid[0]);
         for (int ch = 1; ch < NCH; ++ch)
-            dist = dist + direction[ch] * (pw[px * 4 + ch] - centroid[ch]);
+            dist = dist + direction[ch] * (pw(px, ch) - centroid[ch]);
         bool in = (member >> px) & 1u;
         min_dist = fminf(min_dist, in ? dist : CK_FLT_MAX);
         max_dist = fmaxf(max_dist, in ? dist : -CK_FLT_MAX);
@@ -106,6 +118,15 @@ __device__ __forceinline__ void pca_endpoints(const float* pw, const float* w,
         base[ch] = mn / cw[ch];
         offset[ch] = (mx - mn) / cw[ch];
     }
+}
+
+// pca_endpoints_at over arrays: pw[px*4 + ch] and w[px]
+template <int NCH>
+__device__ __forceinline__ void pca_endpoints(const float* pw, const float* w,
+                                              unsigned member, const float* cw,
+                                              float* base, float* offset) {
+    pca_endpoints_at<NCH>([&](int px, int ch) { return pw[px * 4 + ch]; },
+                          [&](int px) { return w[px]; }, member, cw, base, offset);
 }
 
 // bc7_common.quantize / quantize_p / unquantize on one channel value

@@ -48,8 +48,8 @@ SIGNATURES = {
                      [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                       _I, _I, _P, _P, _P, _P, _P, _P]),
     "dual_plane": ("ck_dual_plane_best",
-                   [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
-                    _P, _P, _P]),
+                   [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P,
+                    _P, _P, _P, _P, _P, _P]),
     "bc6h_group": ("ck_bc6h_group",
                    [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P,
                     _P, _P, _P]),

@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -394,6 +395,43 @@ def dual_plane_consts(combos, cw):
     return ci, cf
 
 
+def dual_plane_order(ci, cf):
+    """The dual-plane kernel's work order, from the lane constants.
+
+    A lane is live unless its offset row (cf row 0) is +inf. A live lane's
+    rotation is what its rotated pixels and PCA line depend on: which
+    channels it rotates (ci rows 0-5) and its channel weights (cf rows
+    7-9, bit for bit). Returns (order [3, L] int32, n_live, n_rot): row 0
+    holds the live lanes in order, then the dead ones; row 1 each live
+    lane's rotation slot (by row 0's position); row 2 each rotation's first
+    live lane.
+    """
+    ci = np.asarray(ci)
+    cf = np.asarray(cf, dtype=np.float32)
+    k_len = ci.shape[1]
+    live = ~np.isposinf(cf[_CF_INV])
+    order = np.zeros((3, k_len), dtype=np.int32)
+    order[0] = np.concatenate([np.flatnonzero(live), np.flatnonzero(~live)])
+    slots = {}
+    for i, k in enumerate(np.flatnonzero(live)):
+        key = (tuple(ci[_CI_CH0_IS3:_CI_A_SRC2 + 1, k] != 0),
+               cf[_CF_CW0:_CF_CW2 + 1, k].tobytes())
+        if key not in slots:
+            order[2, len(slots)] = k
+            slots[key] = len(slots)
+        order[1, i] = slots[key]
+    return order, int(live.sum()), len(slots)
+
+
+@functools.lru_cache(maxsize=16)
+def _dual_plane_order_on(ci_bytes, cf_bytes, k_len, device):
+    """dual_plane_order of the constants with these bytes, on `device`."""
+    ci = np.frombuffer(ci_bytes, dtype=np.int32).reshape(_CI_ROWS, k_len)
+    cf = np.frombuffer(cf_bytes, dtype=np.float32).reshape(_CF_ROWS, k_len)
+    order, n_live, n_rot = dual_plane_order(ci, cf)
+    return torch.as_tensor(order, device=device), n_live, n_rot
+
+
 _DUAL_KEYS = ("rgb_err", "rgb_rank", "rgb_ep", "rgb_idx", "a_err", "a_rank",
               "a_ep", "a_idx")
 
@@ -422,9 +460,14 @@ def dual_plane_best(pix, ci, cf, num_refine_rounds, uniform, fast_indexing):
         a_rank=torch.empty((n, k_len), dtype=I32, device=dev),
         a_ep=torch.empty((n, 2, k_len), dtype=I32, device=dev),
         a_idx=torch.empty((n, 16, k_len), dtype=I32, device=dev))
+    # the work order, derived on the host once per plan (the copy of the
+    # constants back waits for the card)
+    order, n_live, n_rot = _dual_plane_order_on(
+        ci.cpu().numpy().tobytes(), cf.cpu().numpy().tobytes(), k_len, dev)
     fn = cuda_lib.function("dual_plane")
-    code = fn(pix.data_ptr(), ci.data_ptr(), cf.data_ptr(), n, k_len,
-              max(num_refine_rounds, 1), int(uniform), int(fast_indexing),
+    code = fn(pix.data_ptr(), ci.data_ptr(), cf.data_ptr(), order.data_ptr(),
+              n, k_len, n_live, n_rot, max(num_refine_rounds, 1),
+              int(uniform), int(fast_indexing),
               *[out[k].data_ptr() for k in _DUAL_KEYS], _stream())
     cuda_lib.check(code, "dual_plane_best")
     LAUNCHES["dual_plane_best"] += 1

@@ -18,9 +18,12 @@ import convectionkernels_tpu_torch as ckt
 from convectionkernels_tpu_torch import exact_probe
 from convectionkernels_tpu_torch.models import (bc6h, bc6h_kernel, bc7,
                                                 bc7_kernel)
-from tests.test_torch_goldens import (BC6H_CASES, LIGHT, LIGHT_CASES,
+from tests import blockgen
+from tests.test_torch_goldens import (BC6H_CASES, DEFAULT, FAST, LIGHT,
+                                      LIGHT_CASES, PUNCH, UNIFORM,
                                       hdr_blocks, hdr_edge_blocks,
-                                      load_bc6h, load_light, load_q50)
+                                      load_bc6h, load_light, load_q50,
+                                      punch_through_blocks)
 
 pytestmark = pytest.mark.cuda
 
@@ -103,6 +106,100 @@ def test_wrappers_check_their_inputs(card):
                              True)
     with pytest.raises(ValueError):
         bc7_kernel.shape_pca(pix, masks.cpu(), 3, cw, False, True)
+
+
+# --- the search kernels' thread layouts ----------------------------------------
+
+# (name, flags, quality, Options fields) of the encodes whose search-kernel
+# launches are held against the plain versions: fast and slow indexing,
+# uniform weights, punch-through parities, one seed a shape (quality 5 with
+# the LIGHT options) and one-lane segments (quality 1, mode 2)
+SEARCH_CASES = (
+    ("q50_fast", DEFAULT, 50, {}),
+    ("q50_slow", DEFAULT & ~FAST, 50, {}),
+    ("q50_uniform", DEFAULT | UNIFORM, 50, {}),
+    ("q50_punch_through", DEFAULT | PUNCH, 50, {}),
+    ("q5_light_slow", DEFAULT & ~FAST, 5, LIGHT),
+    ("q1", DEFAULT, 1, {}),
+)
+
+
+def search_corpus(n, seed):
+    """n blocks cycling through mixed, punch-through and alpha blocks."""
+    m = max(32, -(-n // 8) * 8)     # mixed_blocks takes multiples of 8
+    parts = [blockgen.mixed_blocks(m, seed), punch_through_blocks(m, seed + 1),
+             blockgen.alpha_blocks(m, seed + 2)]
+    return np.stack(parts, axis=1).reshape(-1, 16, 4)[:n].copy()
+
+
+def same_outputs(got, want):
+    if isinstance(got, dict):
+        got, want = [got[k] for k in sorted(got)], [want[k] for k in sorted(want)]
+    return all(same_bits(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("n", (1, 3, 33, 1000))
+@pytest.mark.parametrize("case", SEARCH_CASES, ids=[c[0] for c in SEARCH_CASES])
+def test_search_kernels_match_plain_versions(card, monkeypatch, case, n):
+    """single_plane_mode_best and dual_plane_best against their plain
+    versions on every launch of an encode, at block counts that are no
+    multiple of any tile; single_plane_mode_best also with every parity of
+    every other block punch-through invalid, where every error is +inf and
+    the rank decides."""
+    _, flags, quality, extra = case
+    launches = {"single_plane_mode_best": [], "dual_plane_best": []}
+    for name in launches:
+        def keep(*args, _kernel=getattr(bc7_kernel, name), _name=name):
+            launches[_name].append(args)
+            return _kernel(*args)
+
+        monkeypatch.setattr(bc7_kernel, name, keep)
+    opts = ckt.Options(flags=flags, **extra)
+    pix = torch.as_tensor(search_corpus(n, seed=300 + n), device=card)
+    bc7.pack(pix, opts.flags, opts.channel_weights(),
+             ckt.plan_from_quality(quality), opts.refine_rounds_bc7)
+    monkeypatch.undo()
+    modes = [args[0] for args in launches["single_plane_mode_best"]]
+    assert {0, 1, 2, 3, 6} <= set(modes)
+    assert len(launches["dual_plane_best"]) == 1
+    for args in launches["single_plane_mode_best"]:
+        pti = args[5].clone()
+        pti[::2] = 1
+        for call in (args, args[:5] + (pti,) + args[6:]):
+            got = bc7_kernel.single_plane_mode_best(*call)
+            want = bc7_kernel.single_plane_mode_best_plain(*call)
+            assert same_outputs(got, want), f"mode {call[0]}"
+    for args in launches["dual_plane_best"]:
+        got = bc7_kernel.dual_plane_best(*args)
+        assert same_outputs(got, bc7_kernel.dual_plane_best_plain(*args))
+
+
+DUAL_ORDER_CASES = (
+    # name, (mode, rotation, index selector, live tweaks) per combo
+    ("one_live_lane", ((4, 1, 0, 1),)),
+    ("every_lane_dead", ((4, 0, 0, 0), (5, 2, 0, 0))),
+    ("dead_rotation_between", ((4, 0, 1, 3), (4, 1, 0, 0), (5, 3, 0, 2),
+                               (4, 0, 0, 4))),
+)
+
+
+@pytest.mark.parametrize("fast", (True, False), ids=("fast", "slow"))
+@pytest.mark.parametrize("case", DUAL_ORDER_CASES,
+                         ids=[c[0] for c in DUAL_ORDER_CASES])
+def test_dual_plane_work_orders(card, case, fast):
+    """dual_plane_best against its plain version for lane tables whose
+    work order (bc7_kernel.dual_plane_order) has a single live lane, none,
+    or a rotation whose every lane is dead, with channel weights that tell
+    rotations apart."""
+    combos = [dict(mode=m, rot=r, isel=i, num_tweak=t, seq=q)
+              for q, (m, r, i, t) in enumerate(case[1])]
+    ci, cf = bc7_kernel.dual_plane_consts(combos, [1.0, 0.75, 0.5, 0.25])
+    pix = torch.as_tensor(search_corpus(77, seed=17), device=card)
+    pix = pix.to(torch.int32).reshape(-1, 64).contiguous()
+    args = (pix, torch.as_tensor(ci, device=card),
+            torch.as_tensor(cf, device=card), 2, False, fast)
+    got = bc7_kernel.dual_plane_best(*args)
+    assert same_outputs(got, bc7_kernel.dual_plane_best_plain(*args))
 
 
 # --- BC6H ------------------------------------------------------------------------

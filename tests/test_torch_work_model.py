@@ -1,0 +1,176 @@
+"""chip_smoke.py's work model, on the CPU: the operation rate its bounds
+use and the lanes it counts as needed work.
+
+chip_smoke imports nothing of the port or of torch at import time, and
+its work functions take CPU tensors, so these run without a card.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+import chip_smoke
+from convectionkernels_tpu_torch.models import bc7_kernel
+
+
+def test_operation_rate_is_the_fma_free_issue_rate():
+    # 132 SMs x 4 schedulers x 32 lanes x 1.98 GHz, one operation a lane
+    assert chip_smoke.H100_ISSUE_LANE_OPS_PER_S == 132 * 4 * 32 * 1.98e9
+    assert abs(chip_smoke.H100_ISSUE_LANE_OPS_PER_S - 33.45e12) < 0.01e12
+
+
+CFG = dict(fast_indexing=False, uniform=False, num_real_channels=3,
+           index_range=8, cw_sq=[1.0] * 4)
+
+
+def single_plane_args(n, lane_i, pti=None, cpow=2, rounds=2, cfg=CFG):
+    """The argument tuple of single_plane_mode_best, at n blocks, for a
+    hand-built lane table (columns: shape, parity, slot valid, members,
+    rank)."""
+    lane_i = torch.as_tensor(np.asarray(lane_i, dtype=np.int32).T.copy())
+    k = lane_i.shape[1]
+    s = int(lane_i[0].max()) + 1
+    if pti is None:
+        pti = torch.zeros((n, 4), dtype=torch.int32)
+    return (0, torch.zeros((n, 64), dtype=torch.int32),
+            torch.zeros((n, s, 4)), torch.zeros((n, s, 4)),
+            torch.zeros((n, s)), pti, lane_i, torch.zeros((2, k)), cpow,
+            cfg, [1.0] * 4, rounds)
+
+
+# two shapes of two slots each: shape 0 owns pixels 0-2, shape 1 pixels 4-7
+LANE = {"s0p0": [0, 0, 1, 0b111, 0], "s0p1": [0, 1, 1, 0b111, 4],
+        "s1p0": [1, 0, 1, 0xF0, 0], "s1p1": [1, 1, 1, 0xF0, 4]}
+
+
+def ops(n, lanes, **kw):
+    return chip_smoke.work_single_plane(single_plane_args(n, lanes, **kw))[1]
+
+
+def test_single_plane_counts_only_valid_lanes():
+    n = 5
+    every = [LANE[k] for k in ("s0p0", "s0p1", "s1p0", "s1p1")]
+    invalid_last = every[:3] + [[1, 1, 0, 0xF0, 4]]
+    # the invalid slot costs nothing: the same as a table without it
+    assert ops(n, invalid_last) == ops(n, every[:3], cpow=2)
+    # and what it saves is exactly one valid lane of its 4 members
+    one_lane = ops(n, [LANE["s1p1"]], cpow=2)
+    assert ops(n, every) - ops(n, invalid_last) == one_lane
+    # a member pixel costs the same for each lane: shape 1 (4 members)
+    # against shape 0 (3 members) differs by one pixel's work, per lane
+    per_pixel = ops(n, [LANE["s1p0"]]) - ops(n, [LANE["s0p0"]])
+    assert per_pixel > 0
+    assert ops(n, [LANE["s1p0"]]) - ops(n, [[1, 0, 1, 0xE0, 0]]) == per_pixel
+    # work scales with the blocks
+    assert ops(2 * n, every) == 2 * ops(n, every)
+
+
+def test_single_plane_selects_over_the_modes_channels():
+    # ck::Selector<3> for an RGB mode, ck::Selector<4> for an RGBA one
+    assert chip_smoke.select_ops(3) == 13 and chip_smoke.select_ops(4) == 16
+    assert chip_smoke.select_ops(1) == 7
+    assert chip_smoke.selector_init_ops(4) - chip_smoke.selector_init_ops(3) \
+        == 8
+
+    def per_pixel(nrc, fast):
+        cfg = dict(CFG, num_real_channels=nrc, fast_indexing=fast)
+        # one round: the member-pixel work is selection and error only
+        return (ops(1, [LANE["s1p0"]], rounds=1, cfg=cfg)
+                - ops(1, [[1, 0, 1, 0xE0, 0]], rounds=1, cfg=cfg))
+
+    for fast in (True, False):
+        # a fourth channel adds its select terms (a subtract, a multiply
+        # and an add) and its error terms, nothing more
+        error_terms = 9 if fast else 3 * 11
+        assert per_pixel(4, fast) - per_pixel(3, fast) == 3 + error_terms
+        # the weight (fast), or three candidates' weights and the retest
+        # (slow), beside each channel's error terms
+        rest = 3 if fast else 3 * 4 + 10
+        assert per_pixel(3, fast) == (chip_smoke.select_ops(3) + rest
+                                      + 3 * error_terms)
+
+
+def test_single_plane_skips_punch_through_parities():
+    n = 4
+    every = [LANE[k] for k in ("s0p0", "s0p1", "s1p0", "s1p1")]
+    pti = torch.zeros((n, 4), dtype=torch.int32)
+    pti[1, 1] = 1          # block 1: parity 1 invalid, its lanes need nothing
+    parity1 = [LANE["s0p1"], LANE["s1p1"]]
+    assert (ops(n, every) - ops(n, every, pti=pti)
+            == ops(1, parity1))
+
+
+def dual_plane_args(n, combos, rounds=2, fast=True):
+    ci, cf = bc7_kernel.dual_plane_consts(combos, [1.0, 0.5, 0.25, 1.0])
+    return (torch.zeros((n, 64), dtype=torch.int32), torch.as_tensor(ci),
+            torch.as_tensor(cf), rounds, False, fast)
+
+
+def combo(mode, rot, isel, num_tweak=4):
+    return dict(mode=mode, rot=rot, isel=isel, num_tweak=num_tweak, seq=0)
+
+
+def dual_ops(n, combos):
+    return chip_smoke.work_dual_plane(dual_plane_args(n, combos))[1]
+
+
+def test_dual_plane_counts_the_pca_once_per_rotation():
+    n = 3
+    one = dual_ops(n, [combo(4, 1, 0)])
+    same_rotation = dual_ops(n, [combo(4, 1, 0), combo(4, 1, 1)])
+    mode5_same_rotation = dual_ops(n, [combo(4, 1, 0), combo(5, 1, 0)])
+    two_rotations = dual_ops(n, [combo(4, 1, 0), combo(4, 2, 0)])
+    lanes4 = same_rotation - one            # 4 more lanes, no more rotations
+    rotation = two_rotations - same_rotation
+    assert lanes4 > 0 and rotation > 0
+    # one combo is one rotation and its 4 lanes
+    assert one == rotation + lanes4
+    # modes 4 and 5 of one rotation share its pixels and PCA line
+    assert mode5_same_rotation == same_rotation
+
+
+def test_dual_plane_counts_only_live_lanes():
+    n = 3
+    full = dual_ops(n, [combo(4, 1, 0), combo(4, 2, 0)])
+    lanes4 = (dual_ops(n, [combo(4, 1, 0), combo(4, 1, 1)])
+              - dual_ops(n, [combo(4, 1, 0)]))
+    # a combo with 2 tweaks has 2 live lanes of its 4
+    assert full - dual_ops(n, [combo(4, 1, 0), combo(4, 2, 0, num_tweak=2)]) \
+        == lanes4 // 2
+    # a rotation whose every lane is dead needs no PCA either
+    assert dual_ops(n, [combo(4, 1, 0), combo(4, 2, 0, num_tweak=0)]) \
+        == dual_ops(n, [combo(4, 1, 0)])
+
+
+def test_single_plane_slot_efficiency_counts_invalid_slots_as_spent():
+    # shape 0: 2 valid slots of 3 members; shape 1: one valid, one invalid
+    # slot of 4 members, which its warp walks all the same
+    lanes = [LANE["s0p0"], LANE["s0p1"], LANE["s1p0"], [1, 1, 0, 0xF0, 4]]
+    args = single_plane_args(3, lanes)
+    assert chip_smoke.single_plane_slot_efficiency([args]) == 10 / 14
+    every = [LANE[k] for k in ("s0p0", "s0p1", "s1p0", "s1p1")]
+    assert chip_smoke.single_plane_slot_efficiency(
+        [single_plane_args(3, every), args]) == 24 / 28
+
+
+def test_dual_plane_order_lists_live_lanes_and_their_rotations():
+    import convectionkernels_tpu_torch as ckt
+    from convectionkernels_tpu_torch.models import bc7
+    combos = bc7._dual_plane_combos(ckt.plan_from_quality(50))
+    ci, cf = bc7_kernel.dual_plane_consts(combos, [1.0, 0.5, 0.25, 1.0])
+    order, n_live, n_rot = bc7_kernel.dual_plane_order(ci, cf)
+    live = np.flatnonzero(~np.isposinf(cf[0]))
+    # q50: 12 combos x 4 tweak slots, 39 live; 4 rotations
+    assert (ci.shape[1], n_live, n_rot) == (48, 39, 4)
+    assert sorted(order[0]) == list(range(48))
+    assert list(order[0, :n_live]) == list(live)
+
+    def rotation(k):
+        return (tuple(ci[0:6, k] != 0), cf[7:10, k].tobytes())
+
+    firsts = order[2, :n_rot]
+    assert len({rotation(k) for k in firsts}) == n_rot
+    for i, k in enumerate(order[0, :n_live]):
+        first = firsts[order[1, i]]
+        assert rotation(first) == rotation(k) and first <= k
