@@ -9,6 +9,9 @@ card and check them.
                                            # also time encode_bc6hu per chunk size
     python3 chip_smoke.py --profile        # also profile one full-width encode
                                            # of each path
+    python3 chip_smoke.py --pca-chunks 81,192,243
+                                           # also time shape_pca alone for lists
+                                           # of these lengths, each chunk forced
     python3 chip_smoke.py --out DIR        # chip_smoke.json and profile_*.txt
                                            # go to DIR (default build/chip_smoke)
 
@@ -28,16 +31,16 @@ Phases, each printed on its own line; any failure exits nonzero:
      version on 1,024 of its blocks:
        - BC7: a 1024x1024 RGBA texture (65,536 blocks) through encode_bc7
          at quality 50 with default Options, decoded back; then
-         single_plane_mode_best (each mode's launch) and dual_plane_best
-         timed alone, 20 back-to-back launches on the inputs captured from
-         the encode;
+         shape_pca (its RGB and RGBA launches), single_plane_mode_best
+         (each mode's launch) and dual_plane_best timed alone, 20
+         back-to-back launches on the inputs captured from the encode;
        - BC6H: a 1024x1024 RGBA16F texture (65,536 blocks of half floats
          uniform in [0, 16), alpha 1.0) through encode_bc6hu with default
          Options (4 x 3 meta rounds, slow indexing), decoded back;
-  6. ptxas's registers, stack and spills of the two search kernels, one
-     JSON line describing every kernel (bounds from the work model below,
-     at the FMA-free issue rate), the card's name and power limit, and the
-     final {"ok": true, ...} line.
+  6. ptxas's registers, stack and spills of the three redesigned BC7
+     kernels, one JSON line describing every kernel (bounds from the work
+     model below, at the FMA-free issue rate), the card's name and power
+     limit, and the final {"ok": true, ...} line.
 
 Needs the CUDA toolkit (nvcc) and a card; imports nothing of JAX.
 """
@@ -86,7 +89,7 @@ BC7_KERNELS = tuple(k for k, v in KERNELS.items()
                     if v["module"] == "bc7_kernel")
 BC6H_KERNEL = "partitioned_group_meta_rounds"
 # kernels also timed alone, on the full-width inputs captured from the encode
-ALONE_KERNELS = ("single_plane_mode_best", "dual_plane_best")
+ALONE_KERNELS = ("shape_pca", "single_plane_mode_best", "dual_plane_best")
 ALONE_LAUNCHES = 20
 
 
@@ -109,20 +112,31 @@ def _host(t):
 
 
 def work_shape_pca(args):
+    """csrc/shape_pca.cu per (block, shape) pair: the centroid, covariance,
+    projection and alpha terms of each member pixel of the shape (the
+    popcount of its mask, summed over the S shapes; a pixel outside the
+    shape needs none), and per pair the centroid's divides, 8 power
+    iterations, the direction and the endpoints. A member's weight is
+    exactly 1, so no multiply by it is charged. A power iteration is nch^2
+    multiplies, nch * (nch - 1) adds (a row's sum starts from its first
+    term), nch - 1 maxima, safe_denom's test and select, and nch divides."""
     pix, mask_bits, nch = args[0], args[1], args[2]
     with_alpha = args[5]
     n, s = pix.shape[0], mask_bits.shape[0]
     ncov = nch * (nch + 1) // 2
-    per = (16 * (2 * nch + 1) + nch + 2          # centroid
-           + 16 * (nch + 3 * ncov)               # covariance
-           + 8 * (2 * nch * nch + 2 * nch)       # power iteration
-           + 3 * nch + 2                         # length, direction
-           + 16 * (3 * nch + 3)                  # projection
-           + 7 * nch                             # endpoints
-           + (16 * 4 + 2 if with_alpha else 0))
+    members = int(_popcount(_host(mask_bits)).sum())
+    per_member = (nch                            # centroid: an add a channel
+                  + nch + 2 * ncov               # covariance
+                  + 3 * nch + 1                  # projection, min and max
+                  + (3 if with_alpha else 0))    # alpha: 255 - a, square, sum
+    per_shape = (nch + 3                         # centroid: count, divides
+                 + 8 * (2 * nch * nch + nch + 1)  # power iteration
+                 + 3 * nch + 2                   # length, direction
+                 + 7 * nch                       # endpoints
+                 + (2 if with_alpha else 0))     # alpha: conversion, weight
     nbytes = n * 64 * 4 + s * 4 + n * s * 16 * 2 + (n * s * 4
                                                      if with_alpha else 0)
-    return nbytes, n * s * per
+    return nbytes, n * (s * per_shape + members * per_member)
 
 
 def select_ops(nch):
@@ -199,7 +213,7 @@ def work_dual_plane(args):
     n, lanes = pix.shape[0], ci.shape[1]
     rounds = max(rounds, 1)
     _, n_live, n_rot = bc7_kernel.dual_plane_order(_host(ci), _host(cf))
-    pca3 = (16 * 7 + 5 + 16 * 21 + 8 * 24 + 11 + 16 * 12 + 21)
+    pca3 = (16 * 7 + 5 + 16 * 21 + 8 * 22 + 11 + 16 * 12 + 21)
     per_rotation = 16 * 12 + pca3
     per_px = 12 + 7 + ((3 + 27) + 11 if fast else 3 * (3 + 33 + 11) + 16)
     per_lane = (40
@@ -239,6 +253,14 @@ def work_bc6h_group(args):
     return nbytes, n * 64 * per_row
 
 
+def bound_ms(nbytes, ops):
+    """The least time in ms the card could take to move `nbytes` and do
+    `ops` operations, and which of the two bounds it."""
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_ops = ops / H100_ISSUE_LANE_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
 WORK = {"shape_pca": work_shape_pca,
         "single_plane_mode_best": work_single_plane,
         "dual_plane_best": work_dual_plane,
@@ -250,7 +272,7 @@ ROW_ARGS = {"shape_pca": (0,), "single_plane_mode_best": (1, 2, 3, 4, 5),
             "partitioned_group_meta_rounds": (0, 1, 2)}
 
 # what tells one launch of a kernel from another: (label, argument position)
-LAUNCH_TAG = {"single_plane_mode_best": ("mode", 0),
+LAUNCH_TAG = {"shape_pca": ("nch", 2), "single_plane_mode_best": ("mode", 0),
               "partitioned_group_meta_rounds": ("aprec", 3)}
 
 
@@ -339,6 +361,7 @@ class Instrument:
                 self.work[_name][0] += nbytes
                 self.work[_name][1] += ops
                 entry = dict(kernel=_name, bytes=nbytes, ops=ops,
+                             bound_ms=bound_ms(nbytes, ops)[0],
                              event=len(self.events[_name]) - 1)
                 if _name in LAUNCH_TAG:
                     label, position = LAUNCH_TAG[_name]
@@ -537,6 +560,42 @@ def timed(fn, repeats=3):
     return times, out
 
 
+def pca_chunk_sweep(pix, cw, uniform, lengths):
+    """csrc/shape_pca.cu alone on the full-width pixels for the first S of
+    the 243 BC7 shapes, S in `lengths`, with each chunk (1, 2 or 4 shapes
+    a warp takes at once) through the C entry point: {nch: {S: {chunk: ms per launch}}}. The RGB lists sum the
+    alpha error, as the encode's do. These launches bypass the wrapper and
+    its count."""
+    import torch
+    from convectionkernels_tpu_torch import cuda_lib
+    from convectionkernels_tpu_torch.models import bc7_kernel
+    from convectionkernels_tpu_torch.tables import bc7_geometry
+    fn = cuda_lib.function("shape_pca")
+    all_bits = bc7_kernel.shape_mask_bits(bc7_geometry.shape_masks())
+    n = pix.shape[0]
+    sweep = {}
+    for nch, with_alpha in ((3, True), (4, False)):
+        sweep[nch] = {}
+        for s_count in lengths:
+            bits = torch.as_tensor(all_bits[:s_count], device=pix.device)
+            base = torch.empty((n, s_count, 4), dtype=torch.float32,
+                               device=pix.device)
+            offset = torch.empty_like(base)
+            alpha = torch.empty((n, s_count), dtype=torch.float32,
+                                device=pix.device)
+
+            def launch(chunk):
+                cuda_lib.check(fn(
+                    pix.data_ptr(), bits.data_ptr(), n, s_count, nch,
+                    bc7_kernel._cw_array(cw), int(uniform), int(with_alpha),
+                    chunk, base.data_ptr(), offset.data_ptr(),
+                    alpha.data_ptr() if with_alpha else None,
+                    bc7_kernel._stream()), "shape_pca")
+            sweep[nch][s_count] = {chunk: time_alone(launch, (chunk,))
+                                   for chunk in (1, 2, 4)}
+    return sweep
+
+
 def chunk_sweep(api, attr, chunks, encode, dev):
     """Encode times and peak device memory for each value of the api
     module's chunk size `attr`."""
@@ -566,6 +625,9 @@ def main(argv=None):
                     help="comma-separated encode_bc7 chunk sizes to time")
     ap.add_argument("--chunks-bc6h", default="",
                     help="comma-separated encode_bc6hu chunk sizes to time")
+    ap.add_argument("--pca-chunks", default="",
+                    help="comma-separated shape list lengths (at most 243) "
+                         "at which to time shape_pca alone with each chunk")
     ap.add_argument("--profile", action="store_true",
                     help="also profile one full-width encode of each path "
                          "(profile_bc7.txt, profile_bc6h.txt in --out)")
@@ -747,6 +809,8 @@ def main(argv=None):
     detail["full_width_launches"] = full_run.detail_ms()
     by_mode = {d["mode"]: d["ms"] for d in detail["full_width_launches"]
                if d["kernel"] == "single_plane_mode_best"}
+    pca_by_nch = {d["nch"]: d for d in detail["full_width_launches"]
+                  if d["kernel"] == "shape_pca"}
 
     # the redesigned kernels alone: back-to-back launches on each launch's
     # full-width inputs, without the encode's host work between them
@@ -757,13 +821,26 @@ def main(argv=None):
     alone_by_mode = {a[0]: ms for a, ms in zip(
         full_run.captured["single_plane_mode_best"],
         alone["single_plane_mode_best"])}
+    pca_alone_by_nch = {a[2]: ms for a, ms in zip(
+        full_run.captured["shape_pca"], alone["shape_pca"])}
     efficiency = single_plane_slot_efficiency(
         full_run.captured["single_plane_mode_best"])
+    if args.pca_chunks:
+        pix, _, _, cw, uniform, _ = full_run.captured["shape_pca"][0]
+        sweep = pca_chunk_sweep(pix, cw, uniform,
+                                [int(s) for s in args.pca_chunks.split(",")])
+        phase("shape_pca_chunks", blocks=pix.shape[0], ms=sweep)
+        detail["shape_pca_chunks"] = sweep
     del full_run.captured
     phase("kernels_alone", launches_each=ALONE_LAUNCHES,
           single_plane_ms_by_mode=alone_by_mode,
           single_plane_slot_efficiency=efficiency,
           single_plane_ms_by_mode_in_encode=by_mode,
+          shape_pca_ms_by_nch=pca_alone_by_nch,
+          shape_pca_ms_by_nch_in_encode={k: d["ms"]
+                                         for k, d in pca_by_nch.items()},
+          shape_pca_bound_ms_by_nch={k: d["bound_ms"]
+                                     for k, d in pca_by_nch.items()},
           **{f"{k}_ms": sum(v) for k, v in alone.items()})
     detail["kernels_alone"] = alone
 
@@ -878,16 +955,14 @@ def main(argv=None):
     kernels = []
     for name, meta in KERNELS.items():
         nbytes, ops = full[name].work[name]
-        t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-        t_ops = ops / H100_ISSUE_LANE_OPS_PER_S * 1e3
+        bound, bound_by = bound_ms(nbytes, ops)
         kernels.append(dict(
             name=name, route="cuda", source=meta["source"],
             replaces=meta["replaces"], launches=launches[name],
             max_abs_err=max_err[name],
             ms=Instrument.total_ms(full[name].events[name]),
             plain_ms=plain_ms[name],
-            bound_ms=max(t_bytes, t_ops),
-            bound_by="bytes" if t_bytes >= t_ops else "operations",
+            bound_ms=bound, bound_by=bound_by,
             library_ms=None,
             ms_alone=sum(alone[name]) if name in alone else None,
             equal=equal[name],
@@ -904,7 +979,8 @@ def main(argv=None):
         json.dump(detail, f, indent=1)
     print(json.dumps({"ptxas_redesigned": {
         k: v for k, v in usage.items()
-        if k.startswith(("single_plane_kernel", "dual_plane_kernel"))}}),
+        if k.startswith(("shape_pca_kernel", "single_plane_kernel",
+                         "dual_plane_kernel"))}}),
         flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

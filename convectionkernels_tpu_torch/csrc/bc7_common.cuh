@@ -45,6 +45,51 @@ __device__ __forceinline__ float safe_denom(float v) {
     return v == 0.0f ? 1.0f : v;
 }
 
+// EndpointSelector's power iteration (8 rounds, max-component
+// normalization) and direction, from the packed covariance cov
+template <int NCH>
+__device__ __forceinline__ void power_direction(const float* cov, float* direction) {
+    float approx[NCH];
+    for (int ch = 0; ch < NCH; ++ch) approx[ch] = 1.0f;
+    for (int it = 0; it < 8; ++it) {
+        float product[NCH];
+        for (int row = 0; row < NCH; ++row) {
+            int index = (row * (row + 1)) >> 1;
+            float total = 0.0f;
+            for (int col = 0; col < NCH; ++col) {
+                float term = approx[col] * cov[index];
+                total = col == 0 ? term : total + term;
+                index += col >= row ? col + 1 : 1;
+            }
+            product[row] = total;
+        }
+        float largest = product[0];
+        for (int ch = 1; ch < NCH; ++ch) largest = fmaxf(largest, product[ch]);
+        largest = safe_denom(largest);
+        for (int ch = 0; ch < NCH; ++ch) approx[ch] = product[ch] / largest;
+    }
+    float approx_len = approx[0] * approx[0];
+    for (int ch = 1; ch < NCH; ++ch) approx_len = approx_len + approx[ch] * approx[ch];
+    approx_len = safe_denom(sqrtf(approx_len));
+    for (int ch = 0; ch < NCH; ++ch) direction[ch] = approx[ch] / approx_len;
+}
+
+// pca.get_endpoints: the line's base and offset, divided by the channel
+// weights cw
+template <int NCH>
+__device__ __forceinline__ void line_endpoints(const float* centroid,
+                                               const float* direction,
+                                               float min_dist, float max_dist,
+                                               const float* cw, float* base,
+                                               float* offset) {
+    for (int ch = 0; ch < NCH; ++ch) {
+        float mn = centroid[ch] + direction[ch] * min_dist;
+        float mx = centroid[ch] + direction[ch] * max_dist;
+        base[ch] = mn / cw[ch];
+        offset[ch] = (mx - mn) / cw[ch];
+    }
+}
+
 // pca.endpoint_selector + pca.get_endpoints for one pixel set.
 // pw(px, ch) gives the pre-weighted pixels, w(px) the pixel weights, member
 // the pass-2 mask bits (all ones when there is no mask). cw holds the
@@ -78,30 +123,8 @@ __device__ __forceinline__ void pca_endpoints_at(PW pw, W w, unsigned member,
             }
     }
 
-    float approx[NCH];
-    for (int ch = 0; ch < NCH; ++ch) approx[ch] = 1.0f;
-    for (int it = 0; it < 8; ++it) {
-        float product[NCH];
-        for (int row = 0; row < NCH; ++row) {
-            int index = (row * (row + 1)) >> 1;
-            float total = 0.0f;
-            for (int col = 0; col < NCH; ++col) {
-                float term = approx[col] * cov[index];
-                total = col == 0 ? term : total + term;
-                index += col >= row ? col + 1 : 1;
-            }
-            product[row] = total;
-        }
-        float largest = product[0];
-        for (int ch = 1; ch < NCH; ++ch) largest = fmaxf(largest, product[ch]);
-        largest = safe_denom(largest);
-        for (int ch = 0; ch < NCH; ++ch) approx[ch] = product[ch] / largest;
-    }
-    float approx_len = approx[0] * approx[0];
-    for (int ch = 1; ch < NCH; ++ch) approx_len = approx_len + approx[ch] * approx[ch];
-    approx_len = safe_denom(sqrtf(approx_len));
     float direction[NCH];
-    for (int ch = 0; ch < NCH; ++ch) direction[ch] = approx[ch] / approx_len;
+    power_direction<NCH>(cov, direction);
 
     float min_dist = CK_FLT_MAX, max_dist = -CK_FLT_MAX;
     for (int px = 0; px < 16; ++px) {
@@ -112,21 +135,65 @@ __device__ __forceinline__ void pca_endpoints_at(PW pw, W w, unsigned member,
         min_dist = fminf(min_dist, in ? dist : CK_FLT_MAX);
         max_dist = fmaxf(max_dist, in ? dist : -CK_FLT_MAX);
     }
-    for (int ch = 0; ch < NCH; ++ch) {
-        float mn = centroid[ch] + direction[ch] * min_dist;
-        float mx = centroid[ch] + direction[ch] * max_dist;
-        base[ch] = mn / cw[ch];
-        offset[ch] = (mx - mn) / cw[ch];
-    }
+    line_endpoints<NCH>(centroid, direction, min_dist, max_dist, cw, base, offset);
 }
 
-// pca_endpoints_at over arrays: pw[px*4 + ch] and w[px]
-template <int NCH>
-__device__ __forceinline__ void pca_endpoints(const float* pw, const float* w,
-                                              unsigned member, const float* cw,
-                                              float* base, float* offset) {
-    pca_endpoints_at<NCH>([&](int px, int ch) { return pw[px * 4 + ch]; },
-                          [&](int px) { return w[px]; }, member, cw, base, offset);
+__device__ __forceinline__ float channel(const float4& v, int ch) {
+    return ch == 0 ? v.x : ch == 1 ? v.y : ch == 2 ? v.z : v.w;
+}
+
+// pca_endpoints_at for a shape: the pixels in `member` have weight 1, the
+// others 0. Each pass walks only the member pixels, in ascending order (the
+// set bits, lowest first), and adds a member's terms without the multiply
+// by its weight. That gives the same bits as the 16-pixel walk: pixels are
+// finite, so a non-member's term (a product with weight 0) is +0 or -0;
+// every sum starts at +0, under round-to-nearest never becomes -0, and so
+// x + (+-0) == x; the projection's min and max skip non-members (FLT_MAX
+// masks) in either form. px4(px) gives the pre-weighted pixel's channels;
+// visit(px) is called for each member in the first pass.
+template <int NCH, class PX, class VISIT>
+__device__ __forceinline__ void pca_endpoints_members(PX px4, VISIT visit,
+                                                      unsigned member,
+                                                      const float* cw, float* base,
+                                                      float* offset) {
+    float centroid[NCH];
+    for (int ch = 0; ch < NCH; ++ch) centroid[ch] = 0.0f;
+    for (unsigned m = member; m != 0u; m &= m - 1u) {
+        const float4 v = px4(__ffs(m) - 1);
+        visit(__ffs(m) - 1);
+        for (int ch = 0; ch < NCH; ++ch) centroid[ch] = centroid[ch] + channel(v, ch);
+    }
+    const float denom = safe_denom((float)__popc(member));
+    for (int ch = 0; ch < NCH; ++ch) centroid[ch] = centroid[ch] / denom;
+
+    constexpr int NCOV = NCH * (NCH + 1) / 2;
+    float cov[NCOV];
+    for (int i = 0; i < NCOV; ++i) cov[i] = 0.0f;
+    for (unsigned m = member; m != 0u; m &= m - 1u) {
+        const float4 v = px4(__ffs(m) - 1);
+        float diff[NCH];
+        for (int ch = 0; ch < NCH; ++ch) diff[ch] = channel(v, ch) - centroid[ch];
+        int index = 0;
+        for (int row = 0; row < NCH; ++row)
+            for (int col = 0; col <= row; ++col) {
+                cov[index] = cov[index] + diff[row] * diff[col];
+                ++index;
+            }
+    }
+
+    float direction[NCH];
+    power_direction<NCH>(cov, direction);
+
+    float min_dist = CK_FLT_MAX, max_dist = -CK_FLT_MAX;
+    for (unsigned m = member; m != 0u; m &= m - 1u) {
+        const float4 v = px4(__ffs(m) - 1);
+        float dist = direction[0] * (v.x - centroid[0]);
+        for (int ch = 1; ch < NCH; ++ch)
+            dist = dist + direction[ch] * (channel(v, ch) - centroid[ch]);
+        min_dist = fminf(min_dist, dist);
+        max_dist = fmaxf(max_dist, dist);
+    }
+    line_endpoints<NCH>(centroid, direction, min_dist, max_dist, cw, base, offset);
 }
 
 // bc7_common.quantize / quantize_p / unquantize on one channel value

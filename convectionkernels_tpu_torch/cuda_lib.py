@@ -43,7 +43,7 @@ _I = ctypes.c_int
 # C entry point, argument types, of each library
 SIGNATURES = {
     "shape_pca": ("ck_shape_pca",
-                  [_P, _P, _I, _I, _I, _P, _I, _I, _P, _P, _P, _P]),
+                  [_P, _P, _I, _I, _I, _P, _I, _I, _I, _P, _P, _P, _P]),
     "single_plane": ("ck_single_plane_mode_best",
                      [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                       _I, _I, _P, _P, _P, _P, _P, _P]),

@@ -95,8 +95,14 @@ def shape_pca(pix, mask_bits, nch, cw, uniform, with_alpha):
              if with_alpha else None)
     fn = cuda_lib.function("shape_pca")
     err = fn(pix.data_ptr(), mask_bits.data_ptr(), n, s_count, nch,
-             _cw_array(cw), int(uniform), int(with_alpha), base.data_ptr(),
-             offset.data_ptr(), alpha.data_ptr() if with_alpha else None,
+             _cw_array(cw), int(uniform), int(with_alpha),
+             # shapes a warp takes at once: 4 gives the alpha errors (4
+             # bytes each) longer row pieces, 2 balances the warps better;
+             # within 2% of the best chunk at every list length timed
+             # (chip_smoke.py --pca-chunks, PERF.md)
+             4 if with_alpha else 2,
+             base.data_ptr(), offset.data_ptr(),
+             alpha.data_ptr() if with_alpha else None,
              _stream())
     cuda_lib.check(err, "shape_pca")
     LAUNCHES["shape_pca"] += 1

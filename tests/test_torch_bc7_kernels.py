@@ -75,6 +75,127 @@ def test_shape_pca(nch, with_alpha):
         assert_bits_equal(alpha.numpy(), ref[2], "alpha")
 
 
+# --- the member walk of csrc/shape_pca.cu -----------------------------------------
+
+FLT_MAX = float(np.float32(3.4028234663852886e38))
+
+
+def member_walk_pca(pix, mask_bits, nch, cw, uniform):
+    """shape_pca as csrc/shape_pca.cu computes it, op by op in float32:
+    every pass walks only a shape's member pixels, in ascending order, and
+    adds a member's terms without the multiply by its weight (exactly 1).
+    Vectorized over shapes: step k visits each shape's k-th member and
+    leaves the shapes with fewer members as they are."""
+    n, s = pix.shape[0], len(mask_bits)
+    members = [[px for px in range(16) if (int(m) >> px) & 1]
+               for m in mask_bits]
+    steps = max(len(ms) for ms in members)
+    idx = torch.tensor([ms + [0] * (steps - len(ms)) for ms in members])
+    live = torch.tensor([[k < len(ms) for k in range(steps)]
+                         for ms in members])
+    ipx = torch.as_tensor(pix).reshape(n, 16, 4)
+    pw = ipx.to(torch.float32) * torch.tensor(np.asarray(cw, np.float32))
+    walk = [(live[:, k], pw[:, idx[:, k], :]) for k in range(steps)]
+    zero = torch.zeros((n, s), dtype=torch.float32)
+
+    centroid = [zero] * nch
+    for on, v in walk:
+        centroid = [torch.where(on, c + v[..., ch], c)
+                    for ch, c in enumerate(centroid)]
+    count = torch.tensor([float(len(ms)) for ms in members])
+    denom = torch.where(count == 0, torch.ones_like(count), count)
+    centroid = [c / denom for c in centroid]
+
+    cov = [zero] * (nch * (nch + 1) // 2)
+    for on, v in walk:
+        diff = [v[..., ch] - centroid[ch] for ch in range(nch)]
+        terms = [diff[r] * diff[c] for r in range(nch) for c in range(r + 1)]
+        cov = [torch.where(on, a + t, a) for a, t in zip(cov, terms)]
+
+    approx = [torch.ones_like(zero)] * nch
+    for _ in range(8):
+        product = []
+        for row in range(nch):
+            index, total = row * (row + 1) // 2, None
+            for col in range(nch):
+                term = approx[col] * cov[index]
+                total = term if total is None else total + term
+                index += col + 1 if col >= row else 1
+            product.append(total)
+        largest = product[0]
+        for p in product[1:]:
+            largest = torch.maximum(largest, p)
+        largest = torch.where(largest == 0, torch.ones_like(largest), largest)
+        approx = [p / largest for p in product]
+    length = approx[0] * approx[0]
+    for a in approx[1:]:
+        length = length + a * a
+    length = torch.from_numpy(np.sqrt(length.numpy()))   # correctly rounded
+    length = torch.where(length == 0, torch.ones_like(length), length)
+    direction = [a / length for a in approx]
+
+    lo = torch.full_like(zero, FLT_MAX)
+    hi = torch.full_like(zero, -FLT_MAX)
+    for on, v in walk:
+        dist = direction[0] * (v[..., 0] - centroid[0])
+        for ch in range(1, nch):
+            dist = dist + direction[ch] * (v[..., ch] - centroid[ch])
+        lo = torch.where(on, torch.minimum(lo, dist), lo)
+        hi = torch.where(on, torch.maximum(hi, dist), hi)
+    base, offset = [], []
+    for ch in range(nch):
+        mn = centroid[ch] + direction[ch] * lo
+        mx = centroid[ch] + direction[ch] * hi
+        base.append(mn / float(cw[ch]))
+        offset.append((mx - mn) / float(cw[ch]))
+
+    agg = torch.zeros((n, s), dtype=torch.int32)
+    for k in range(steps):
+        d = 255 - ipx[:, idx[:, k], 3]
+        agg = torch.where(live[:, k], agg + d * d, agg)
+    alpha = agg.to(torch.float32)
+    if not uniform:
+        alpha = alpha * float(np.float32(cw[3]) * np.float32(cw[3]))
+    pad = [zero] * (4 - nch)
+    return (torch.stack(base + pad, -1), torch.stack(offset + pad, -1),
+            alpha)
+
+
+def extreme_blocks(n, seed):
+    """Blocks whose every channel value is 0 or 255."""
+    rng = np.random.default_rng(seed)
+    return (rng.integers(0, 2, size=(n, 16, 4)) * 255).astype(np.uint8)
+
+
+PREMISE_BLOCKS = {
+    "random": lambda: blockgen.random_blocks(32, seed=31),
+    # covariance 0 and the power iteration's largest 0: safe_denom applies
+    "flat": lambda: blockgen.flat_blocks(32, seed=32),
+    "extremes": lambda: extreme_blocks(32, seed=33),
+}
+
+
+@pytest.mark.parametrize("uniform", (False, True), ids=("weighted", "uniform"))
+@pytest.mark.parametrize("nch", (3, 4))
+@pytest.mark.parametrize("blocks", sorted(PREMISE_BLOCKS))
+def test_member_walk_equals_shape_pca_plain(blocks, nch, uniform):
+    """The redesigned kernel's premise: walking only the member pixels,
+    without the multiply by a weight of 1, gives shape_pca_plain's bits
+    (its 16-pixel walk with weights 0 and 1) on all 243 shapes and on the
+    16 one-member shapes."""
+    pix = PREMISE_BLOCKS[blocks]().reshape(32, 64).astype(np.int32)
+    cw = ([np.float32(1.0)] * 4 if uniform else CW)
+    bits_ = np.concatenate([port_kernel.shape_mask_bits(geom.shape_masks()),
+                            (1 << np.arange(16)).astype(np.int32)])
+    assert len(bits_) == 243 + 16
+    want = port_kernel.shape_pca_plain(torch.as_tensor(pix),
+                                       torch.as_tensor(bits_), nch, cw,
+                                       uniform, True)
+    got = member_walk_pca(pix, bits_, nch, cw, uniform)
+    for name, g, w in zip(("base", "offset", "alpha"), got, want):
+        assert_bits_equal(g.numpy(), w.numpy(), name)
+
+
 def single_plane_inputs(mode, pix, plan, flags_fast=True, respect_pt=True):
     """The port's inputs of one mode's single-plane launch (as models/bc7.py
     builds them), plus the JAX kernel's padded equivalents."""

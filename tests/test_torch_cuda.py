@@ -108,6 +108,95 @@ def test_wrappers_check_their_inputs(card):
         bc7_kernel.shape_pca(pix, masks.cpu(), 3, cw, False, True)
 
 
+# --- shape_pca's layout: 32 blocks a CUDA block, a warp a shape -------------------
+
+def pca_corpus(n, seed):
+    """n blocks cycling through mixed, flat and 0/255 blocks."""
+    m = max(32, -(-n // 8) * 8)     # mixed_blocks takes multiples of 8
+    rng = np.random.default_rng(seed)
+    extremes = (rng.integers(0, 2, size=(m, 16, 4)) * 255).astype(np.uint8)
+    parts = [blockgen.mixed_blocks(m, seed), blockgen.flat_blocks(m, seed + 1),
+             extremes]
+    return np.stack(parts, axis=1).reshape(-1, 16, 4)[:n].copy()
+
+
+def pca_mask_lists():
+    """Shape lists of 1, 81 (q50 RGBA), 215 (q50 RGB) and 243 shapes, the
+    16 one-member shapes, and masks with bits above 15 set (which both
+    versions ignore: one has no pixel left), as membership bits."""
+    from convectionkernels_tpu_torch.tables import bc7_geometry
+    bits = bc7_kernel.shape_mask_bits(bc7_geometry.shape_masks())
+    plan = ckt.plan_from_quality(50)
+    return {"1": bits[[5]], "81": bits[list(plan.rgba_shape_list)],
+            "215": bits[list(plan.rgb_shape_list)], "243": bits,
+            "one_member": (1 << np.arange(16)).astype(np.int32),
+            "high_bits": np.concatenate([
+                bits[:8] | (1 << 20), bits[8:16] | np.int32(-(1 << 16)),
+                np.array([1 << 16], dtype=np.int32)]).astype(np.int32)}
+
+
+@pytest.mark.parametrize("shapes", ("1", "81", "215", "243", "one_member",
+                                    "high_bits"))
+@pytest.mark.parametrize("n", (1, 31, 32, 33, 1000))
+def test_shape_pca_matches_plain_version(card, n, shapes):
+    """Every output bit-equal, for 3 and 4 channels, with and without the
+    alpha error, uniform and weighted, at block counts around the 32-block
+    group and shape counts around the 4-shape chunk."""
+    masks = torch.as_tensor(pca_mask_lists()[shapes], device=card)
+    pix = torch.as_tensor(pca_corpus(n, seed=400 + n).reshape(n, 64),
+                          dtype=torch.int32, device=card)
+    for nch in (3, 4):
+        for with_alpha in (True, False):
+            for uniform in (False, True):
+                cw = (1.0,) * 4 if uniform else ckt.Options().channel_weights()
+                call = (pix, masks, nch, cw, uniform, with_alpha)
+                before = bc7_kernel.LAUNCHES["shape_pca"]
+                got = bc7_kernel.shape_pca(*call)
+                torch.cuda.synchronize()
+                assert bc7_kernel.LAUNCHES["shape_pca"] == before + 1
+                want = bc7_kernel.shape_pca_plain(*call)
+                what = (nch, with_alpha, uniform)
+                assert (got[2] is None) == (want[2] is None) == (not with_alpha)
+                assert same_outputs([t for t in got if t is not None],
+                                    [t for t in want if t is not None]), what
+
+
+@pytest.mark.parametrize("shapes", ("81", "215"))
+def test_shape_pca_every_chunk_matches_plain_version(card, shapes):
+    """Each chunk the C entry point takes (1, 2 or 4 shapes a warp takes at
+    once) gives the plain version's bits; the wrapper passes 4 with the
+    alpha error and 2 without. Chunks of 0 and 3 are refused."""
+    from convectionkernels_tpu_torch import cuda_lib
+    masks = torch.as_tensor(pca_mask_lists()[shapes], device=card)
+    n, s_count = 33, masks.shape[0]
+    pix = torch.as_tensor(pca_corpus(n, seed=450).reshape(n, 64),
+                          dtype=torch.int32, device=card)
+    cw = ckt.Options().channel_weights()
+    fn = cuda_lib.function("shape_pca")
+    for nch, with_alpha in ((3, True), (4, False)):
+        want = bc7_kernel.shape_pca_plain(pix, masks, nch, cw, False,
+                                          with_alpha)
+        for chunk in (1, 2, 4, 0, 3):
+            base = torch.zeros((n, s_count, 4), dtype=torch.float32,
+                               device=card)
+            offset = torch.zeros_like(base)
+            alpha = torch.zeros((n, s_count), dtype=torch.float32,
+                                device=card)
+            err = fn(pix.data_ptr(), masks.data_ptr(), n, s_count, nch,
+                     bc7_kernel._cw_array(cw), 0, int(with_alpha), chunk,
+                     base.data_ptr(), offset.data_ptr(),
+                     alpha.data_ptr() if with_alpha else None,
+                     bc7_kernel._stream())
+            torch.cuda.synchronize()
+            if chunk in (0, 3):
+                assert err != 0
+                continue
+            assert err == 0
+            got = [base, offset] + ([alpha] if with_alpha else [])
+            assert same_outputs(got, [t for t in want if t is not None]), \
+                (nch, chunk)
+
+
 # --- the search kernels' thread layouts ----------------------------------------
 
 # (name, flags, quality, Options fields) of the encodes whose search-kernel

@@ -174,3 +174,102 @@ def test_dual_plane_order_lists_live_lanes_and_their_rotations():
     for i, k in enumerate(order[0, :n_live]):
         first = firsts[order[1, i]]
         assert rotation(first) == rotation(k) and first <= k
+
+
+def pca_ops(n, masks, nch=3, with_alpha=False):
+    """work_shape_pca's operations for n blocks and the shape masks."""
+    args = (torch.zeros((n, 64), dtype=torch.int32),
+            torch.as_tensor(np.asarray(masks, dtype=np.int32)), nch,
+            [1.0] * 4, False, with_alpha)
+    return chip_smoke.work_shape_pca(args)[1]
+
+
+def test_shape_pca_counts_member_pixels():
+    # per member: the centroid's add, the covariance's differences,
+    # products and sums, the projection's differences, products, sums, min
+    # and max, each over nch channels; no multiply by a weight of 1
+    for nch, per_member in ((3, 3 + (3 + 2 * 6) + (3 * 3 + 1)),
+                            (4, 4 + (4 + 2 * 10) + (3 * 4 + 1))):
+        one, full = pca_ops(1, [0x0001], nch), pca_ops(1, [0xFFFF], nch)
+        assert full - one == 15 * per_member
+        # how many pixels are members counts, not which
+        assert pca_ops(1, [0x8000], nch) == one
+        assert pca_ops(1, [0x00FF], nch) == pca_ops(1, [0xAAAA], nch)
+        # shapes add up
+        assert pca_ops(1, [0x0001, 0xFFFF], nch) == one + full
+
+
+def test_shape_pca_alpha_term_scales_with_members():
+    for nch in (3, 4):
+        extra = [pca_ops(1, [m], nch, True) - pca_ops(1, [m], nch, False)
+                 for m in (0x0001, 0x0003, 0x00FF, 0xFFFF)]
+        # per shape a conversion and the weight; per member 255 - a, its
+        # square and the sum
+        assert extra == [2 + 3 * k for k in (1, 2, 8, 16)]
+
+
+def test_shape_pca_ops_are_linear_in_blocks():
+    masks = [0x0001, 0x0033, 0xFFFF]
+    for nch, with_alpha in ((3, True), (4, False)):
+        one = pca_ops(1, masks, nch, with_alpha)
+        assert [pca_ops(n, masks, nch, with_alpha) for n in (2, 7, 65536)] \
+            == [n * one for n in (2, 7, 65536)]
+
+
+def test_shape_pca_q50_lists_against_a_hand_count():
+    import convectionkernels_tpu_torch as ckt
+    from convectionkernels_tpu_torch.tables import bc7_geometry
+    plan = ckt.plan_from_quality(50)
+    masks = bc7_geometry.shape_masks()
+    rgb = bc7_kernel.shape_mask_bits(masks[np.asarray(plan.rgb_shape_list)])
+    rgba = bc7_kernel.shape_mask_bits(masks[np.asarray(plan.rgba_shape_list)])
+    n = 65536
+    # RGB list: 215 shapes, 1,448 member pixels, 3 channels and the alpha
+    # error. Per shape: centroid 3 + 3, power iteration 8 x 22, direction
+    # 11, endpoints 21, alpha 2; per member 3 + 15 + 10 + 3.
+    assert (len(rgb), int(chip_smoke._popcount(rgb).sum())) == (215, 1448)
+    rgb_ops = n * (215 * (6 + 176 + 11 + 21 + 2) + 1448 * 31)
+    assert pca_ops(n, rgb, 3, True) == rgb_ops
+    # RGBA list: 81 shapes, 656 member pixels, 4 channels. Per shape:
+    # centroid 4 + 3, power iteration 8 x 37, direction 14, endpoints 28;
+    # per member 4 + 24 + 13.
+    assert (len(rgba), int(chip_smoke._popcount(rgba).sum())) == (81, 656)
+    rgba_ops = n * (81 * (7 + 296 + 14 + 28) + 656 * 41)
+    assert pca_ops(n, rgba, 4, False) == rgba_ops
+    # both launches bound by operations: about 0.286 ms at the issue rate
+    ms = (rgb_ops + rgba_ops) / chip_smoke.H100_ISSUE_LANE_OPS_PER_S * 1e3
+    assert abs(ms - 0.2863) < 1e-3
+    pix = torch.zeros((n, 64), dtype=torch.int32)
+    for masks_, nch, alpha in ((rgb, 3, True), (rgba, 4, False)):
+        nbytes, ops = chip_smoke.work_shape_pca(
+            (pix, torch.as_tensor(masks_), nch, [1.0] * 4, False, alpha))
+        assert chip_smoke.bound_ms(nbytes, ops) == (
+            ops / chip_smoke.H100_ISSUE_LANE_OPS_PER_S * 1e3, "operations")
+
+
+def test_pca_chunk_sweep_launches_each_chunk_at_each_length(monkeypatch):
+    """--pca-chunks: the C entry point takes every chunk at every list
+    length, the first S of the 243 shapes, RGB lists with the alpha error;
+    the launch and its timing are faked, as there is no card here."""
+    from convectionkernels_tpu_torch import cuda_lib
+    calls = []
+
+    def fake_function(name):
+        def launch(*args):
+            assert len(args) == len(cuda_lib.SIGNATURES[name][1])
+            calls.append((args[3], args[4], args[7], args[8],
+                          args[11] is not None))
+            return 0
+        return launch
+
+    monkeypatch.setattr(cuda_lib, "function", fake_function)
+    monkeypatch.setattr(bc7_kernel, "_stream", lambda: 0)
+    monkeypatch.setattr(chip_smoke, "time_alone",
+                        lambda fn, args: (fn(*args), 0.5)[1])
+    pix = torch.zeros((33, 64), dtype=torch.int32)
+    sweep = chip_smoke.pca_chunk_sweep(pix, [1.0] * 4, False, [1, 81, 243])
+    assert sweep == {nch: {s: {1: 0.5, 2: 0.5, 4: 0.5} for s in (1, 81, 243)}
+                     for nch in (3, 4)}
+    assert calls == [(s, nch, int(nch == 3), chunk, nch == 3)
+                     for nch in (3, 4) for s in (1, 81, 243)
+                     for chunk in (1, 2, 4)]
