@@ -1,21 +1,29 @@
 #!/usr/bin/env python3
-"""Drive the torch port's main paths (BC7 q50 and BC6H encode) on one CUDA
-card and check them.
+"""Drive the torch port's main paths (BC7 q50, BC6H and S3TC encode) on one
+CUDA card and check them.
 
     python3 chip_smoke.py                  # the check, on one card
     python3 chip_smoke.py --chunks 8192,16384,32768,65536
                                            # also time encode_bc7 per chunk size
     python3 chip_smoke.py --chunks-bc6h 4096,8192,16384,32768
                                            # also time encode_bc6hu per chunk size
+    python3 chip_smoke.py --chunks-s3tc 4096,16384,65536
+                                           # also time encode_bc1 and
+                                           # encode_bc3 per chunk size
+    python3 chip_smoke.py --chunks-s3tc-exhaustive 4096,16384,65536
+                                           # also time the exhaustive
+                                           # encode_bc1 per chunk size
     python3 chip_smoke.py --profile        # also profile one full-width encode
-                                           # of each path
+                                           # of each path (BC7, BC6H, and BC1,
+                                           # BC3 and exhaustive BC1)
     python3 chip_smoke.py --pca-chunks 81,192,243
                                            # also time shape_pca alone for lists
                                            # of these lengths, each chunk forced
     python3 chip_smoke.py --out DIR        # chip_smoke.json and profile_*.txt
                                            # go to DIR (default build/chip_smoke)
 
-Phases, each printed on its own line; any failure exits nonzero:
+Phases, each printed on its own line; a failed check prints
+{"ok": false, "error": ...} as the last line and exits nonzero:
   1. build the CUDA kernels from csrc/ (one nvcc per source, in parallel);
   2. exact_probe: divide/sqrt/round/clamp/FMA/int chains, card vs CPU bits;
   3. each kernel against its plain PyTorch version on the card: the BC7
@@ -23,7 +31,8 @@ Phases, each printed on its own line; any failure exits nonzero:
      launch), the BC6H kernel on the blocks of the stored BC6H goldens at
      12 rounds (unsigned/slow/aPrec 10, signed/fast/aPrec 6, uniform
      weights): f32 outputs compared as int32 bits, so the tolerance is 0;
-  4. encode_bc7, encode_bc6hu and encode_bc6hs on the card against the JAX
+  4. encode_bc7, encode_bc6hu, encode_bc6hs and the S3TC entry points
+     (every case of the stored S3TC goldens) on the card against the JAX
      package's golden bytes;
   5. the full-width runs, each timed with CUDA events (median of 3 after a
      warm-up) with its kernels' launches counted over the main path, and
@@ -37,6 +46,12 @@ Phases, each printed on its own line; any failure exits nonzero:
        - BC6H: a 1024x1024 RGBA16F texture (65,536 blocks of half floats
          uniform in [0, 16), alpha 1.0) through encode_bc6hu with default
          Options (4 x 3 meta rounds, slow indexing), decoded back;
+       - S3TC: eight configurations at 65,536 blocks with default Options,
+         bc1, bc2, bc3, bc4u, bc5u and the exhaustive bc1 on the BC7
+         texture, bc4s and bc5s on the JAX bench's int8 blocks; each
+         timed, its peak device memory read, and 1,024 of its blocks held
+         byte-equal to the port's CPU bytes for the same blocks (S3TC has
+         no kernel: this is its card-versus-plain check);
   6. ptxas's registers, stack and spills of the three redesigned BC7
      kernels, one JSON line describing every kernel (bounds from the work
      model below, at the FMA-free issue rate), the card's name and power
@@ -443,6 +458,32 @@ def make_hdr_texture(seed=43, n_blocks=65536):
     return vals.view(np.int16)
 
 
+# the S3TC full-width configurations: (name, entry point, flags added to
+# the default Options, input)
+S3TC_CONFIGS = (
+    ("bc1", "encode_bc1", 0, "texture"),
+    ("bc2", "encode_bc2", 0, "texture"),
+    ("bc3", "encode_bc3", 0, "texture"),
+    ("bc4u", "encode_bc4u", 0, "texture"),
+    ("bc4s", "encode_bc4s", 0, "signed"),
+    ("bc5u", "encode_bc5u", 0, "texture"),
+    ("bc5s", "encode_bc5s", 0, "signed"),
+    ("bc1_exhaustive", "encode_bc1", 0x080, "texture"),  # S3TC_EXHAUSTIVE
+)
+S3TC_PROFILED = ("bc1", "bc3", "bc1_exhaustive")
+CPU_CHECK_BLOCKS = 1024
+
+
+def make_signed_blocks(n_blocks=65536):
+    """int8 [n, 16, 4] blocks as the JAX bench makes its bc4s / bc5s input
+    (bench.py:203-209): the third draw from default_rng(44)."""
+    import numpy as np
+    rng = np.random.default_rng(44)
+    rng.integers(0, 2048, size=(n_blocks, 16), dtype=np.int16)
+    rng.integers(-1024, 1024, size=(n_blocks, 16), dtype=np.int16)
+    return rng.integers(-128, 128, size=(n_blocks, 16, 4)).astype(np.int8)
+
+
 def profile_encode(encode, out_path):
     """One full-width encode under torch.profiler: the device's busy time
     by kernel name against the host's wall time for the same encode."""
@@ -625,12 +666,20 @@ def main(argv=None):
                     help="comma-separated encode_bc7 chunk sizes to time")
     ap.add_argument("--chunks-bc6h", default="",
                     help="comma-separated encode_bc6hu chunk sizes to time")
+    ap.add_argument("--chunks-s3tc", default="",
+                    help="comma-separated CHUNK_S3TC sizes at which to "
+                         "time encode_bc1 and encode_bc3")
+    ap.add_argument("--chunks-s3tc-exhaustive", default="",
+                    help="comma-separated CHUNK_S3TC_EXHAUSTIVE sizes at "
+                         "which to time the exhaustive encode_bc1")
     ap.add_argument("--pca-chunks", default="",
                     help="comma-separated shape list lengths (at most 243) "
                          "at which to time shape_pca alone with each chunk")
     ap.add_argument("--profile", action="store_true",
                     help="also profile one full-width encode of each path "
-                         "(profile_bc7.txt, profile_bc6h.txt in --out)")
+                         "(profile_bc7.txt, profile_bc6h.txt, "
+                         "profile_bc1.txt, profile_bc3.txt, "
+                         "profile_bc1_exhaustive.txt in --out)")
     ap.add_argument("--out", default=os.path.join(REPO, "build", "chip_smoke"),
                     help="directory for chip_smoke.json (every launch's "
                          "time and work) and the profiles")
@@ -767,6 +816,29 @@ def main(argv=None):
     phase("golden_bc6h", blocks=n_golden, mismatched_blocks=bad_cases)
     if any(bad_cases.values()):
         raise SystemExit(f"blocks differ from the JAX package's BC6H "
+                         f"goldens: {bad_cases}")
+    with np.load(os.path.join(testdata, "s3tc_golden.npz")) as z:
+        s3tc_golden = {k: z[k] for k in z.files}
+    bad_cases = {}
+    n_golden = 0
+    for name in sorted(k[:-len("_pixels")] for k in s3tc_golden
+                       if k.endswith("_pixels")):
+        flags, threshold, seed_points, rounds_s3tc, rounds_iic = (
+            s3tc_golden[f"{name}_options"].tolist())
+        encode = getattr(api, "encode_" + name.split("_")[0])
+        got = encode(s3tc_golden[f"{name}_pixels"], ckt.Options(
+            flags=int(flags), threshold=threshold,
+            seed_points=int(seed_points),
+            refine_rounds_s3tc=int(rounds_s3tc),
+            refine_rounds_iic=int(rounds_iic)), device=dev)
+        bad_cases[name] = int(
+            (got.cpu().numpy() != s3tc_golden[f"{name}_blocks"]).any(
+                axis=1).sum())
+        n_golden += got.shape[0]
+    phase("golden_s3tc", blocks=n_golden, cases=len(bad_cases),
+          mismatched_blocks=bad_cases)
+    if any(bad_cases.values()):
+        raise SystemExit(f"blocks differ from the JAX package's S3TC "
                          f"goldens: {bad_cases}")
 
     # 5a. the BC7 full-width run: 65,536 blocks, q50, default options
@@ -912,6 +984,54 @@ def main(argv=None):
     detail["full_width_bc6h_launches"] = full_bc6h.detail
     del out, again
 
+    # 5c. the S3TC full-width runs: 65,536 blocks each, default options
+    signed_dev = torch.as_tensor(make_signed_blocks(tex.shape[0]), device=dev)
+    rows = torch.arange(0, tex.shape[0], tex.shape[0] // CPU_CHECK_BLOCKS,
+                        device=dev)
+    s3tc_encoders = {}
+    detail["full_width_s3tc"] = {}
+    for name, entry, extra_flags, source in S3TC_CONFIGS:
+        blocks = tex_dev if source == "texture" else signed_dev
+        s3tc_opts = ckt.Options(flags=opts.flags | extra_flags)
+
+        def encode_s3tc(_fn=getattr(api, entry), _blocks=blocks,
+                        _opts=s3tc_opts):
+            return _fn(_blocks, _opts, device=dev)
+
+        s3tc_encoders[name] = encode_s3tc
+        out = encode_s3tc()
+        torch.cuda.synchronize()
+        width = 16 if entry in ("encode_bc2", "encode_bc3", "encode_bc5u",
+                                "encode_bc5s") else 8
+        if out.shape != (blocks.shape[0], width) or out.dtype != torch.uint8:
+            raise SystemExit(f"{name} returned {tuple(out.shape)} "
+                             f"{out.dtype}")
+        torch.cuda.reset_peak_memory_stats(dev)
+        times, again = timed(encode_s3tc)
+        peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
+        if not torch.equal(again, out):
+            raise SystemExit(f"{name} is not deterministic")
+        t0 = time.perf_counter()
+        cpu = getattr(api, entry)(blocks.index_select(0, rows).cpu(),
+                                  s3tc_opts, device="cpu")
+        cpu_s = time.perf_counter() - t0
+        bad = int((out.index_select(0, rows).cpu() != cpu).any(dim=1).sum())
+        ms = statistics.median(times)
+        result = dict(
+            config=name, blocks=blocks.shape[0],
+            chunk=(api.CHUNK_S3TC_EXHAUSTIVE if extra_flags
+                   else api.CHUNK_S3TC),
+            encode_ms=times, encode_ms_median=ms,
+            mtexels_per_s=blocks.shape[0] * 16 / (ms * 1e-3) / 1e6,
+            peak_gib=peak_gib, cpu_blocks_compared=len(rows),
+            cpu_mismatched_blocks=bad, cpu_seconds=cpu_s)
+        phase("full_width_s3tc", **result)
+        detail["full_width_s3tc"][name] = result
+        if bad:
+            raise SystemExit(f"{name}: {bad} of {len(rows)} blocks encoded "
+                             f"on the card differ from the CPU's")
+        del out, again
+
     full = {**{k: full_run for k in BC7_KERNELS}, BC6H_KERNEL: full_bc6h}
     wides = {**{k: wide for k in BC7_KERNELS}, BC6H_KERNEL: wide_bc6h}
     for name in KERNELS:
@@ -928,7 +1048,8 @@ def main(argv=None):
 
     if args.profile:
         for label, encode in (("bc7", encode_bc7_full),
-                              ("bc6h", encode_bc6h_full)):
+                              ("bc6h", encode_bc6h_full),
+                              *((k, s3tc_encoders[k]) for k in S3TC_PROFILED)):
             prof = profile_encode(encode, os.path.join(
                 args.out, f"profile_{label}.txt"))
             detail[f"profile_{label}"] = prof
@@ -950,6 +1071,16 @@ def main(argv=None):
                             encode_bc6h_full, dev)
         phase("chunk_sweep_bc6h", results=sweep)
         detail["chunk_sweep_bc6h"] = sweep
+    for attr, option, names in (
+            ("CHUNK_S3TC", args.chunks_s3tc, ("bc1", "bc3")),
+            ("CHUNK_S3TC_EXHAUSTIVE", args.chunks_s3tc_exhaustive,
+             ("bc1_exhaustive",))):
+        for name in names if option else ():
+            sweep = chunk_sweep(api, attr,
+                                [int(c) for c in option.split(",")],
+                                s3tc_encoders[name], dev)
+            phase("chunk_sweep_s3tc", config=name, results=sweep)
+            detail[f"chunk_sweep_{name}"] = sweep
 
     # 6. the kernels line, the card, and the result
     kernels = []
@@ -991,4 +1122,10 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        sys.exit(main())
+    except SystemExit as failure:
+        if isinstance(failure.code, str):     # a check failed
+            print(json.dumps({"ok": False, "error": failure.code}),
+                  flush=True)
+        raise

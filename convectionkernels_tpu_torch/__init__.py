@@ -1,4 +1,4 @@
-"""convectionkernels_tpu_torch — BC7 and BC6H texture block compression in PyTorch
+"""convectionkernels_tpu_torch — S3TC, BC7 and BC6H texture block compression in PyTorch
 with hand-written CUDA kernels for NVIDIA Hopper.
 
 The PyTorch port of convectionkernels_tpu (which stays the reference): the
@@ -6,8 +6,10 @@ same bytes for the same blocks, Options and BC7 plan. It imports torch and
 numpy only, never JAX or the reference package.
 """
 
-from .api import (decode_bc6hs, decode_bc6hu, decode_bc7, encode_bc6hs,
-                  encode_bc6hu, encode_bc7)
+from .api import (decode_bc6hs, decode_bc6hu, decode_bc7, encode_bc1,
+                  encode_bc2, encode_bc3, encode_bc4s, encode_bc4u,
+                  encode_bc5s, encode_bc5u, encode_bc6hs, encode_bc6hu,
+                  encode_bc7)
 from .bc7_plan import (BC7EncodingPlan, BC7FineTuningParams,
                        plan_from_fine_tuning_params, plan_from_quality)
 from .options import Flags, Options
@@ -20,6 +22,13 @@ __all__ = [
     "decode_bc6hs",
     "decode_bc6hu",
     "decode_bc7",
+    "encode_bc1",
+    "encode_bc2",
+    "encode_bc3",
+    "encode_bc4s",
+    "encode_bc4u",
+    "encode_bc5s",
+    "encode_bc5u",
     "encode_bc6hs",
     "encode_bc6hu",
     "encode_bc7",

@@ -1,14 +1,14 @@
-"""Public BC7 and BC6H API.
+"""Public S3TC, BC7 and BC6H API.
 
-The PyTorch counterpart of cvtt::Kernels' BC7 and BC6H entry points
+The PyTorch counterpart of cvtt::Kernels' S3TC, BC7 and BC6H entry points
 (ConvectionKernels.h:236-277, ConvectionKernels_API.cpp). Every entry point
 takes a batch of N blocks ([N, 16, 4] pixels) and runs on `device`: the
 CUDA card by default, where the hand-written kernels run, or the CPU when
 the caller asks for it, where their plain PyTorch versions run.
 
 Blocks are independent, so a large batch is encoded in host-side chunks
-of CHUNK_BC7 or CHUNK_BC6H blocks, which bounds the device memory of the
-per-candidate kernel outputs.
+(CHUNK_S3TC, CHUNK_S3TC_EXHAUSTIVE, CHUNK_BC7, CHUNK_BC6H blocks), which
+bounds the device memory of the per-candidate tensors.
 """
 
 from __future__ import annotations
@@ -17,8 +17,16 @@ import numpy as np
 import torch
 
 from . import bc7_plan
-from .models import bc6h, bc7, decode
-from .options import Options
+from .models import bc6h, bc7, decode, s3tc
+from .options import Flags, Options
+
+# Blocks per S3TC encode chunk, and per chunk of an exhaustive BC1-BC3
+# encode, whose [N, 965] partition tensors peak at about 145 KB a block
+# (9.1 GiB at 65,536). The S3TC encoders are eager tensor code, so each
+# chunk costs a fixed launch overhead (about 65 ms for BC1, 250 ms for BC3
+# on an H100); PERF.md records the sweeps these values come from.
+CHUNK_S3TC = 65536
+CHUNK_S3TC_EXHAUSTIVE = 65536
 
 # Blocks per encode chunk. On an H100 the encode's host-side torch ops cost
 # a fixed launch overhead per chunk, so larger chunks are faster until the
@@ -53,12 +61,14 @@ def _as_blocks(pixels, device, dtype=torch.uint8) -> torch.Tensor:
     return t.to(device)
 
 
-def _chunked(pack_chunk, blocks, chunk: int) -> torch.Tensor:
-    """`pack_chunk` over `chunk`-sized slices of the block axis."""
+def _chunked(pack_chunk, blocks, chunk: int, width: int = 16) -> torch.Tensor:
+    """`pack_chunk` over `chunk`-sized slices of the block axis; `width`
+    bytes a block."""
     outs = [pack_chunk(blocks[i:i + chunk])
             for i in range(0, blocks.shape[0], chunk)]
     if not outs:
-        return torch.zeros((0, 16), dtype=torch.uint8, device=blocks.device)
+        return torch.zeros((0, width), dtype=torch.uint8,
+                           device=blocks.device)
     return outs[0] if len(outs) == 1 else torch.cat(outs, dim=0)
 
 
@@ -133,3 +143,96 @@ def decode_bc6hs(blocks, device=None) -> torch.Tensor:
     """Kernels::DecodeBC6HS (API.cpp:312-322): the signed counterpart of
     decode_bc6hu."""
     return _decode_bc6h(blocks, True, device)
+
+
+def _encode_s3tc(pack_chunk, pixels, options: Options, device, width: int,
+                 signed=False, color=False) -> torch.Tensor:
+    """`pack_chunk` over the blocks in chunks: CHUNK_S3TC_EXHAUSTIVE
+    blocks where a BC1 color half runs the exhaustive search."""
+    dev = resolve_device(device)
+    blocks = _as_blocks(pixels, dev, torch.int8 if signed else torch.uint8)
+    if signed:
+        blocks = s3tc.bias_signed_input(blocks)
+    exhaustive = color and bool(options.flags & Flags.S3TC_EXHAUSTIVE)
+    return _chunked(pack_chunk, blocks,
+                    CHUNK_S3TC_EXHAUSTIVE if exhaustive else CHUNK_S3TC, width)
+
+
+def _rgb(blocks, options: Options, alpha_test: bool):
+    """PackRGB with the options' settings: BC1 (with the alpha test) or the
+    color half of BC2 / BC3 (API.cpp:86-131)."""
+    return s3tc.pack_rgb(
+        blocks, options.flags, options.channel_weights(), alpha_test,
+        options.threshold if alpha_test else 1.0,
+        bool(options.flags & Flags.S3TC_EXHAUSTIVE), options.seed_points,
+        options.refine_rounds_s3tc)
+
+
+def _interpolated(blocks, options: Options, channel: int, signed: bool):
+    return s3tc.pack_interpolated_alpha(blocks, channel, signed,
+                                        options.seed_points,
+                                        options.refine_rounds_iic)
+
+
+def encode_bc1(pixels, options: Options = Options(),
+               device=None) -> torch.Tensor:
+    """Kernels::EncodeBC1 (API.cpp:86-99): BC1 with the alpha test, uint8
+    [N, 16, 4] -> uint8 [N, 8] on `device`."""
+    return _encode_s3tc(lambda b: _rgb(b, options, True), pixels, options,
+                        device, 8, color=True)
+
+
+def encode_bc2(pixels, options: Options = Options(),
+               device=None) -> torch.Tensor:
+    """Kernels::EncodeBC2 (API.cpp:101-115): 4-bit alpha then BC1 color,
+    uint8 [N, 16, 4] -> uint8 [N, 16] on `device`."""
+    return _encode_s3tc(
+        lambda b: torch.cat([s3tc.pack_explicit_alpha(b, 3),
+                             _rgb(b, options, False)], dim=-1),
+        pixels, options, device, 16, color=True)
+
+
+def encode_bc3(pixels, options: Options = Options(),
+               device=None) -> torch.Tensor:
+    """Kernels::EncodeBC3 (API.cpp:117-131): interpolated alpha then BC1
+    color, uint8 [N, 16, 4] -> uint8 [N, 16] on `device`."""
+    return _encode_s3tc(
+        lambda b: torch.cat([_interpolated(b, options, 3, False),
+                             _rgb(b, options, False)], dim=-1),
+        pixels, options, device, 16, color=True)
+
+
+def encode_bc4u(pixels, options: Options = Options(),
+                device=None) -> torch.Tensor:
+    """Kernels::EncodeBC4U (API.cpp:133-146): the red channel, uint8
+    [N, 16, 4] -> uint8 [N, 8] on `device`."""
+    return _encode_s3tc(lambda b: _interpolated(b, options, 0, False),
+                        pixels, options, device, 8)
+
+
+def encode_bc4s(pixels, options: Options = Options(),
+                device=None) -> torch.Tensor:
+    """Kernels::EncodeBC4S (API.cpp:148-164): the red channel of signed
+    input, int8 [N, 16, 4] -> uint8 [N, 8] on `device`."""
+    return _encode_s3tc(lambda b: _interpolated(b, options, 0, True),
+                        pixels, options, device, 8, signed=True)
+
+
+def _bc5(options: Options, signed: bool):
+    return lambda b: torch.cat([_interpolated(b, options, 0, signed),
+                                _interpolated(b, options, 1, signed)], dim=-1)
+
+
+def encode_bc5u(pixels, options: Options = Options(),
+                device=None) -> torch.Tensor:
+    """Kernels::EncodeBC5U (API.cpp:166-180): red then green, uint8
+    [N, 16, 4] -> uint8 [N, 16] on `device`."""
+    return _encode_s3tc(_bc5(options, False), pixels, options, device, 16)
+
+
+def encode_bc5s(pixels, options: Options = Options(),
+                device=None) -> torch.Tensor:
+    """Kernels::EncodeBC5S (API.cpp:182-199): red then green of signed
+    input, int8 [N, 16, 4] -> uint8 [N, 16] on `device`."""
+    return _encode_s3tc(_bc5(options, True), pixels, options, device, 16,
+                        signed=True)

@@ -116,6 +116,37 @@ class IndexSelector:
             out.append(torch.floor(t * float(np.float32(1.0 / 64.0))))
         return out
 
+    def reconstruct_ldr_precise(self, index, num_real_channels=None):
+        """ReconstructLDRPrecise (IndexSelector.h:102-112): 255ths weights."""
+        nrc = self.nch if num_real_channels is None else num_real_channels
+        recip = WEIGHT_RECIPROCALS[self.range]
+        weight = (recip * index + 64) >> 7
+        out = []
+        for ch in range(nrc):
+            ep0f = (256 - weight) * self.endpoints[0][ch]
+            ep1f = weight * self.endpoints[1][ch]
+            out.append((ep0f + ep1f + 128) >> 8)
+        return out
+
+
+def aggregated_error_finalize(err_channels, flags_uniform: bool,
+                              channel_weights_sq):
+    """AggregatedError::Finalize (ConvectionKernels_AggregatedError.h:30-46).
+
+    err_channels: int32 tensors of unweighted squared-error sums, one per
+    channel; channel_weights_sq: their float32 weights.
+    """
+    if flags_uniform:
+        total = err_channels[0]
+        for ch in range(1, len(err_channels)):
+            total = total + err_channels[ch]
+        return lanes.to_float(total)
+    total = lanes.to_float(err_channels[0]) * _weight(channel_weights_sq[0])
+    for ch in range(1, len(err_channels)):
+        total = total + lanes.to_float(err_channels[ch]) * _weight(
+            channel_weights_sq[ch])
+    return total
+
 
 def _weight(w):
     return w if torch.is_tensor(w) else float(np.float32(w))

@@ -1,4 +1,4 @@
-"""Lane math: exact float/int semantics shared by the BC7 and BC6H encoders.
+"""Lane math: exact float/int semantics shared by the encoders.
 
 The batched form of the reference's ParallelMath layer
 (ConvectionKernels_ParallelMath.h). Every value is a torch tensor whose
@@ -125,3 +125,8 @@ def compute_tweak_factors(tweak: int, range_: int) -> tuple[np.float32, np.float
     f0 = -(np.float32(min_outside)) / np.float32(inside)
     f1 = np.float32(max_outside) / np.float32(inside) + np.float32(1.0)
     return f0, f1
+
+
+def tweak_rounds_for_range(range_: int) -> int:
+    """BCCommon::TweakRoundsForRange (ConvectionKernels_BCCommon.cpp:39-44)."""
+    return 3 if range_ == 3 else 4

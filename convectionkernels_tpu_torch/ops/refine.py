@@ -72,6 +72,36 @@ class EndpointRefiner:
         else:
             self.wu = self.wu + mask.to(lanes.I32)
 
+    def contribute_unweighted_pw_pixels(self, pw_pixels, index, mask=None):
+        """contribute_unweighted_pw for each pixel of a trailing pixel axis,
+        in pixel order.
+
+        pw_pixels: one float32 tensor [..., P] a channel; index (int32) and
+        mask (bool) [..., P]. Every pixel's terms are computed at once;
+        the totals then take them one pixel at a time, all totals in one
+        stacked add a pixel. Each element of the stack is its own chain, so
+        the totals are bit-identical to P calls of contribute_unweighted_pw.
+        """
+        nrc = len(pw_pixels)
+        t = lanes.to_float(index) * self.rcp_max_index
+        terms = torch.stack(torch.broadcast_tensors(
+            *[t * v for v in pw_pixels], *pw_pixels, t * t, t), dim=-1)
+        if mask is not None:
+            terms = torch.where(mask[..., None], terms, torch.zeros(
+                (), dtype=terms.dtype, device=terms.device))
+        totals = [*self.tv[:nrc], *self.v[:nrc], self.tt, self.t]
+        acc = torch.stack([x.expand(terms.shape[:-2]) for x in totals],
+                          dim=-1)
+        for px in range(terms.shape[-2]):
+            acc = acc + terms[..., px, :]
+        self.tv[:nrc] = acc[..., :nrc].unbind(-1)
+        self.v[:nrc] = acc[..., nrc:2 * nrc].unbind(-1)
+        self.tt, self.t = acc[..., 2 * nrc], acc[..., 2 * nrc + 1]
+        if mask is None:
+            self.wu = self.wu + terms.shape[-2]
+        else:
+            self.wu = self.wu + mask.sum(dim=-1, dtype=lanes.I32)
+
     def get_refined_endpoints(self):
         """GetRefinedEndpoints (EndpointRefiner.h:100-145). Returns float eps."""
         w = lanes.make_safe_denominator(lanes.to_float(self.wu))

@@ -1,7 +1,8 @@
-"""Offline table generation (BC7 part).
+"""Offline table generation (S3TC and BC7 parts).
 
-Python/NumPy reimplementation of the BC7 half of the reference's MakeTables
-app (MakeTables/Program.cs): brute-force optimal BC7 single-color tables.
+Python/NumPy reimplementation of the S3TC and BC7 halves of the reference's
+MakeTables app (MakeTables/Program.cs): brute-force optimal single-color
+tables.
 Tables are computed on demand and cached in-process; they are tiny (KBs)
 and generation takes milliseconds, so nothing is persisted to disk.
 """
@@ -24,6 +25,39 @@ def bit_expand_p(v, bits: int, parity_bit: int):
     v = v << (8 - bits)
     v = v | (parity_bit << (7 - bits))
     return v | (v >> (bits + 1))
+
+
+@functools.lru_cache(maxsize=None)
+def s3tc_single_color_table(bits: int, max_index: int, paranoia: float):
+    """EmitTable (Program.cs:95-148): optimal single-color S3TC endpoints.
+
+    Returns int32 [256, 4]: (min, max, actualColor, span) per target value.
+    Candidate order and the (error, then smaller-span) tie-break match the
+    C# loops exactly (double-precision error math as in C#).
+    """
+    ep_range = 1 << bits
+    ep = np.arange(ep_range)
+    expanded = bit_expand(ep, bits)
+    mn = expanded[:, None]  # min-major iteration order
+    mx = expanded[None, :]
+    interpolated = (mn * (max_index - 1) + mx) // max_index
+    span = np.abs(mn - mx)
+
+    interp_flat = interpolated.reshape(-1)
+    span_flat = span.reshape(-1)
+    mn_flat = np.broadcast_to(mn, interpolated.shape).reshape(-1)
+    mx_flat = np.broadcast_to(mx, interpolated.shape).reshape(-1)
+    order = np.arange(interp_flat.size)
+
+    out = np.zeros((256, 4), dtype=np.int32)
+    for i in range(256):
+        delta = np.abs(interp_flat - i).astype(np.float64) + span_flat * paranoia
+        error = delta * delta
+        # winner: first (iteration order) among min error, span tie-break
+        best = np.lexsort((order, span_flat, error))[0]
+        out[i] = (mn_flat[best], mx_flat[best], interp_flat[best],
+                  span_flat[best])
+    return out
 
 
 # BC7 interpolation weights (Program.cs:23-25; also BC67.cpp:121-132)

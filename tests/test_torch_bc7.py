@@ -198,13 +198,16 @@ import torch
 import convectionkernels_tpu_torch as ckt
 from convectionkernels_tpu_torch import (api, convert, cuda_lib,
                                          exact_probe)
-from convectionkernels_tpu_torch.models import bc7, bc7_kernel, decode
+from convectionkernels_tpu_torch.models import bc7, bc7_kernel, decode, s3tc
+from convectionkernels_tpu_torch.tables import s3tc_single_color
 loaded = [m for m in sys.modules
           if m == "convectionkernels_tpu" or m.startswith("convectionkernels_tpu.")]
 assert not loaded, loaded
 px = torch.zeros((2, 16, 4), dtype=torch.uint8)
 if not torch.cuda.is_available():
     for call in (lambda: ckt.encode_bc7(px, quality=5),
+                 lambda: ckt.encode_bc1(px),
+                 lambda: ckt.encode_bc5s(px.to(torch.int8)),
                  lambda: ckt.decode_bc7(torch.zeros((2, 16), dtype=torch.uint8))):
         try:
             call()
@@ -216,6 +219,8 @@ out = ckt.encode_bc7(px, ckt.Options(refine_rounds_bc7=1, seed_points=1),
                      quality=1, device="cpu")
 assert out.shape == (2, 16) and out.dtype == torch.uint8
 assert ckt.decode_bc7(out, device="cpu").shape == (2, 16, 4)
+assert ckt.encode_bc1(px, device="cpu").shape == (2, 8)
+assert len(s3tc_single_color.load_tables()) == 8
 print("ok")
 """
 

@@ -1,8 +1,10 @@
 """The port's CUDA kernels on the card (marker `cuda`; skipped without one).
 
 Each kernel wrapper is held bit for bit against its plain PyTorch version
-on the same card inputs, and encode_bc7, encode_bc6hu and encode_bc6hs on
-the card against the stored JAX bytes. This file imports nothing of JAX, so it runs on a machine
+on the same card inputs, encode_bc7, encode_bc6hu and encode_bc6hs on the
+card against the stored JAX bytes, and the S3TC entry points (eager tensor
+code, no kernel of their own) on the card against the stored JAX bytes and
+against the port on the CPU. This file imports nothing of JAX, so it runs on a machine
 without it:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -20,10 +22,11 @@ from convectionkernels_tpu_torch.models import (bc6h, bc6h_kernel, bc7,
                                                 bc7_kernel)
 from tests import blockgen
 from tests.test_torch_goldens import (BC6H_CASES, DEFAULT, FAST, LIGHT,
-                                      LIGHT_CASES, PUNCH, UNIFORM,
-                                      hdr_blocks, hdr_edge_blocks,
+                                      LIGHT_CASES, PUNCH, S3TC_CASES,
+                                      UNIFORM, hdr_blocks, hdr_edge_blocks,
                                       load_bc6h, load_light, load_q50,
-                                      punch_through_blocks)
+                                      load_s3tc, punch_through_blocks,
+                                      signed_blocks)
 
 pytestmark = pytest.mark.cuda
 
@@ -366,3 +369,54 @@ def test_bc6h_wrapper_checks_its_inputs(card):
         run(pix, line, line, 10, False, False, False, cw, 5, 3)
     with pytest.raises(ValueError):
         run(pix, line, line, 16, False, False, False, cw, 4, 3)
+
+
+# --- S3TC: the card against the stored JAX bytes and the port on the CPU -----------
+
+S3TC_ENTRIES = (
+    ("bc1", {}), ("bc2", {}), ("bc3", {}), ("bc4u", {}), ("bc4s", {}),
+    ("bc5u", {}), ("bc5s", {}), ("bc1_exhaustive", dict(flags=0x188)))
+
+
+def s3tc_encode(entry, fields, px, device):
+    fmt = entry.split("_")[0]
+    return getattr(ckt, f"encode_{fmt}")(px, ckt.Options(**fields),
+                                         device=device)
+
+
+@pytest.mark.parametrize("case", S3TC_CASES, ids=[c[0] for c in S3TC_CASES])
+def test_encode_s3tc_golden_on_card(card, case):
+    name, fmt, _, fields = case
+    px, blocks, _ = load_s3tc(name)
+    got = s3tc_encode(fmt, fields, px, None)     # device=None: the card
+    assert got.device.type == "cuda"
+    np.testing.assert_array_equal(got.cpu().numpy(), blocks)
+    np.testing.assert_array_equal(
+        got.cpu().numpy(), s3tc_encode(fmt, fields, px, "cpu").numpy())
+
+
+@pytest.mark.parametrize("n", (1, 31, 1000))
+@pytest.mark.parametrize("entry", S3TC_ENTRIES, ids=[e[0] for e in S3TC_ENTRIES])
+def test_encode_s3tc_card_equals_cpu(card, entry, n):
+    name, fields = entry
+    px = blockgen.mixed_blocks(max(32, n), seed=500 + n)[:n]
+    if name in ("bc4s", "bc5s"):
+        px = signed_blocks(max(32, n), seed=600 + n)[:n]
+    got = s3tc_encode(name, fields, px, card)
+    want = s3tc_encode(name, fields, px, "cpu")
+    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+
+
+@pytest.mark.parametrize("entry", S3TC_ENTRIES, ids=[e[0] for e in S3TC_ENTRIES])
+def test_encode_s3tc_above_the_chunk(card, entry, monkeypatch):
+    """More blocks than a chunk: chunks of 32 give the CPU's bytes."""
+    from convectionkernels_tpu_torch import api
+    monkeypatch.setattr(api, "CHUNK_S3TC", 32)
+    monkeypatch.setattr(api, "CHUNK_S3TC_EXHAUSTIVE", 32)
+    name, fields = entry
+    px = blockgen.mixed_blocks(104, seed=701)
+    if name in ("bc4s", "bc5s"):
+        px = signed_blocks(104, seed=703)
+    got = s3tc_encode(name, fields, px, card)
+    want = s3tc_encode(name, fields, px, "cpu")
+    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())

@@ -1,4 +1,4 @@
-"""JAX-produced BC7 and BC6H goldens for the torch port, and their
+"""JAX-produced BC7, BC6H and S3TC goldens for the torch port, and their
 re-derivation.
 
 The JAX package encodes a BC7 configuration on a CPU in 25-110 s (trace
@@ -23,7 +23,15 @@ case's Options, and `blocks` from its `models.bc6h.pack` run op by op. They
 differ in one block (27 of `edge_signed`), where the compiled program picks
 another candidate of the aPrec-6 group; the port is held to `blocks`.
 
-Regenerate the files with:  python -m tests.test_torch_goldens [bc7|bc6h]
+The S3TC golden (s3tc_golden.npz) holds, for each case of S3TC_CASES, the
+pixels (uint8, or int8 for the signed formats), the case's Options
+(`options`: flags, threshold, seed points, S3TC and interpolated-alpha
+refine rounds), `blocks` from the JAX package's `models.s3tc` functions run
+op by op, composed as its api.py composes them, and, except for the cases
+of S3TC_NOT_JITTED, `api_blocks` from its jitted `encode_bc1` ...
+`encode_bc5s`. The two agree in every case that has both.
+
+Regenerate the files with:  python -m tests.test_torch_goldens [bc7|bc6h|s3tc]
 """
 
 from __future__ import annotations
@@ -40,6 +48,7 @@ TESTDATA = os.path.join(os.path.dirname(os.path.dirname(
 Q50_PATH = os.path.join(TESTDATA, "bc7_q50_golden.npz")
 LIGHT_PATH = os.path.join(TESTDATA, "bc7_light_golden.npz")
 BC6H_PATH = os.path.join(TESTDATA, "bc6h_golden.npz")
+S3TC_PATH = os.path.join(TESTDATA, "s3tc_golden.npz")
 
 LIGHT = dict(seed_points=1, refine_rounds_s3tc=1, refine_rounds_iic=1,
              refine_rounds_bc7=1, refine_rounds_bc6h=1)
@@ -73,6 +82,67 @@ BC6H_CASES = (
     ("edge_signed", "edge", True, DEFAULT, 2, 2),
     ("default", "hdr16", False, DEFAULT, 4, 3),
 )
+
+
+S3TC_EXHAUSTIVE = 0x080  # Flags.S3TC_EXHAUSTIVE
+BETTER = 0x180           # Flags.BETTER: paranoid + exhaustive
+
+# (name, format, corpus, Options fields) of the S3TC goldens
+S3TC_CASES = (
+    ("bc1_default", "bc1", "mixed", {}),
+    ("bc1_flags0", "bc1", "mixed", dict(flags=0)),
+    ("bc1_uniform", "bc1", "mixed", dict(flags=UNIFORM)),
+    ("bc1_better", "bc1", "alpha", dict(flags=BETTER)),
+    ("bc1_exhaustive", "bc1", "mixed", dict(flags=S3TC_EXHAUSTIVE)),
+    ("bc1_light", "bc1", "mixed2", dict(threshold=0.25, seed_points=1,
+                                        refine_rounds_s3tc=1)),
+    ("bc2_default", "bc2", "mixed", {}),
+    ("bc3_default", "bc3", "mixed", {}),
+    ("bc3_iic1", "bc3", "alpha", dict(refine_rounds_iic=1)),
+    ("bc4u_default", "bc4u", "mixed", {}),
+    ("bc5u_default", "bc5u", "mixed2", {}),
+    ("bc4s_default", "bc4s", "signed", {}),
+    ("bc5s_default", "bc5s", "signed", {}),
+)
+S3TC_SIGNED = ("bc4s", "bc5s")
+# Cases whose jitted JAX encoder XLA:CPU cannot compile here: the default
+# 8 interpolated-alpha refine rounds unroll into 160 rounds of 16 pixels,
+# and compiling encode_bc4u alone took 55 GB of host memory after 20
+# minutes, still growing. Their golden holds the op-by-op bytes only.
+S3TC_NOT_JITTED = ("bc3_default", "bc4u_default", "bc5u_default",
+                   "bc4s_default", "bc5s_default")
+
+
+def s3tc_options_row(fields):
+    """The stored form of a case's Options: flags, threshold, seed points,
+    S3TC and interpolated-alpha refine rounds."""
+    from convectionkernels_tpu_torch.options import Options
+    o = Options(**fields)
+    return np.float64([o.flags, o.threshold, o.seed_points,
+                       o.refine_rounds_s3tc, o.refine_rounds_iic])
+
+
+def signed_blocks(n, seed):
+    """int8 blocks: mixed blocks shifted into signed space, the first four
+    at the edge values (all -128, all 127, all -127, and a mix of the
+    three)."""
+    px = (blockgen.mixed_blocks(n, seed).astype(np.int16) - 128).astype(
+        np.int8)
+    px[0], px[1], px[2] = -128, 127, -127
+    px[3] = np.random.default_rng(seed).choice(
+        np.int8([-128, -127, 127]), size=(16, 4))
+    return px
+
+
+def s3tc_corpus(name):
+    """64 blocks: mixed (random, gradient, flat, alpha), alpha or signed."""
+    if name == "mixed":
+        return blockgen.mixed_blocks(64, seed=401)
+    if name == "mixed2":
+        return blockgen.mixed_blocks(64, seed=402)
+    if name == "alpha":
+        return blockgen.alpha_blocks(64, seed=403)
+    return signed_blocks(64, seed=405)
 
 
 def hdr_blocks(n, seed):
@@ -198,6 +268,59 @@ def jax_bc6h_op_by_op(px, signed, flags, seed_points, refine_rounds):
                                 seed_points, refine_rounds))
 
 
+def jax_s3tc_bytes(px, fmt, fields):
+    import convectionkernels_tpu as ck
+    return np.asarray(getattr(ck, f"encode_{fmt}")(px, ck.Options(**fields)))
+
+
+def jax_s3tc_op_by_op(px, fmt, fields):
+    """The JAX package's models.s3tc functions, not jitted, composed as
+    its api.py composes them for `fmt`."""
+    import jax.numpy as jnp
+
+    from convectionkernels_tpu.models import s3tc
+    from convectionkernels_tpu.options import Flags, Options
+    from convectionkernels_tpu.tables import s3tc_single_color
+    o = Options(**fields)
+    exhaustive = bool(o.flags & Flags.S3TC_EXHAUSTIVE)
+
+    def rgb(alpha_test):
+        return s3tc.pack_rgb(
+            px, o.flags, o.channel_weights(), alpha_test,
+            o.threshold if alpha_test else 1.0, exhaustive, o.seed_points,
+            o.refine_rounds_s3tc,
+            s3tc_single_color.load_tables() if exhaustive else None)
+
+    def interpolated(blocks, channel, signed):
+        return s3tc.pack_interpolated_alpha(blocks, channel, signed,
+                                            o.seed_points,
+                                            o.refine_rounds_iic)
+
+    if fmt == "bc1":
+        out = rgb(True)
+    elif fmt == "bc2":
+        out = jnp.concatenate([s3tc.pack_explicit_alpha(px, 3), rgb(False)],
+                              axis=-1)
+    elif fmt == "bc3":
+        out = jnp.concatenate([interpolated(px, 3, False), rgb(False)],
+                              axis=-1)
+    else:
+        signed = fmt in S3TC_SIGNED
+        blocks = s3tc.bias_signed_input(px) if signed else px
+        out = jnp.concatenate(
+            [interpolated(blocks, ch, signed)
+             for ch in range(2 if fmt.startswith("bc5") else 1)], axis=-1)
+    return np.asarray(out)
+
+
+def load_s3tc(name):
+    """(pixels, bytes the port must give, bytes of the jitted JAX API, or
+    None for a case of S3TC_NOT_JITTED)."""
+    with np.load(S3TC_PATH) as z:
+        api = z[f"{name}_api_blocks"] if f"{name}_api_blocks" in z else None
+        return z[f"{name}_pixels"], z[f"{name}_blocks"], api
+
+
 def load_bc6h(name):
     """(pixels, bytes the port must give, bytes of the jitted JAX API)."""
     with np.load(BC6H_PATH) as z:
@@ -251,6 +374,35 @@ def test_bc6h_golden_matches_jax(case):
         blocks)
 
 
+@pytest.mark.slow
+@pytest.mark.parametrize("case", S3TC_CASES, ids=[c[0] for c in S3TC_CASES])
+def test_s3tc_golden_matches_jax(case):
+    name, fmt, corpus, fields = case
+    px, blocks, api_blocks = load_s3tc(name)
+    np.testing.assert_array_equal(px, s3tc_corpus(corpus))
+    with np.load(S3TC_PATH) as z:
+        np.testing.assert_array_equal(z[f"{name}_options"],
+                                      s3tc_options_row(fields))
+    np.testing.assert_array_equal(jax_s3tc_op_by_op(px, fmt, fields), blocks)
+    assert (api_blocks is None) == (name in S3TC_NOT_JITTED)
+    if api_blocks is not None:
+        np.testing.assert_array_equal(jax_s3tc_bytes(px, fmt, fields),
+                                      api_blocks)
+
+
+def _write_s3tc():
+    out = {}
+    for name, fmt, corpus, fields in S3TC_CASES:
+        px = s3tc_corpus(corpus)
+        out[f"{name}_pixels"] = px
+        out[f"{name}_options"] = s3tc_options_row(fields)
+        out[f"{name}_blocks"] = jax_s3tc_op_by_op(px, fmt, fields)
+        if name not in S3TC_NOT_JITTED:
+            out[f"{name}_api_blocks"] = jax_s3tc_bytes(px, fmt, fields)
+        print("s3tc", name, flush=True)
+    np.savez_compressed(S3TC_PATH, **out)
+
+
 def _write_bc6h():
     out = {}
     for name, corpus, signed, flags, seed_points, refine_rounds in BC6H_CASES:
@@ -281,7 +433,7 @@ def _write_bc7():
     print("q50", flush=True)
 
 
-def _write(which=("bc7", "bc6h")):
+def _write(which=("bc7", "bc6h", "s3tc")):
     import tests.conftest  # noqa: F401  (exactness XLA flags, CPU platform)
 
     os.makedirs(TESTDATA, exist_ok=True)
@@ -289,8 +441,10 @@ def _write(which=("bc7", "bc6h")):
         _write_bc7()
     if "bc6h" in which:
         _write_bc6h()
+    if "s3tc" in which:
+        _write_s3tc()
 
 
 if __name__ == "__main__":
     import sys
-    _write(tuple(sys.argv[1:]) or ("bc7", "bc6h"))
+    _write(tuple(sys.argv[1:]) or ("bc7", "bc6h", "s3tc"))
