@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the torch port's main paths (BC7 q50, BC6H and S3TC encode) on one
-CUDA card and check them.
+"""Drive the torch port's main paths (BC7 q50, BC6H, S3TC, ETC1, ETC2 alpha
+and EAC11 encode) on one CUDA card and check them.
 
     python3 chip_smoke.py                  # the check, on one card
     python3 chip_smoke.py --chunks 8192,16384,32768,65536
@@ -13,9 +13,15 @@ CUDA card and check them.
     python3 chip_smoke.py --chunks-s3tc-exhaustive 4096,16384,65536
                                            # also time the exhaustive
                                            # encode_bc1 per chunk size
+    python3 chip_smoke.py --chunks-etc 4096,16384,65536
+                                           # also time encode_etc1 (default
+                                           # and FakeBT709) per chunk size
+    python3 chip_smoke.py --chunks-eac 16384,65536
+                                           # also time encode_etc2_alpha and
+                                           # encode_eac11 per chunk size
     python3 chip_smoke.py --profile        # also profile one full-width encode
-                                           # of each path (BC7, BC6H, and BC1,
-                                           # BC3 and exhaustive BC1)
+                                           # of each path (BC7, BC6H, BC1,
+                                           # BC3, exhaustive BC1 and ETC1)
     python3 chip_smoke.py --pca-chunks 81,192,243
                                            # also time shape_pca alone for lists
                                            # of these lengths, each chunk forced
@@ -31,9 +37,11 @@ Phases, each printed on its own line; a failed check prints
      launch), the BC6H kernel on the blocks of the stored BC6H goldens at
      12 rounds (unsigned/slow/aPrec 10, signed/fast/aPrec 6, uniform
      weights): f32 outputs compared as int32 bits, so the tolerance is 0;
-  4. encode_bc7, encode_bc6hu, encode_bc6hs and the S3TC entry points
-     (every case of the stored S3TC goldens) on the card against the JAX
-     package's golden bytes;
+  4. encode_bc7, encode_bc6hu, encode_bc6hs, the S3TC entry points (every
+     case of the stored S3TC goldens) and the ETC entry points (every case
+     of the stored ETC goldens: ETC1 weighted, uniform, FakeBT709 fast and
+     accurate, tie-prone blocks; ETC2 alpha; EAC11 unsigned and signed) on
+     the card against the JAX package's golden bytes;
   5. the full-width runs, each timed with CUDA events (median of 3 after a
      warm-up) with its kernels' launches counted over the main path, and
      then each kernel, launched at the full width, against its plain
@@ -52,6 +60,11 @@ Phases, each printed on its own line; a failed check prints
          timed, its peak device memory read, and 1,024 of its blocks held
          byte-equal to the port's CPU bytes for the same blocks (S3TC has
          no kernel: this is its card-versus-plain check);
+       - ETC: five configurations at 65,536 blocks with default Options,
+         etc1, etc1 with FakeBT709 and etc2_alpha on the BC7 texture,
+         eac_r11 and eac_r11s on the JAX bench's int16 values; each timed,
+         its peak device memory read, and 1,024 of its blocks held
+         byte-equal to the port's CPU bytes (no kernel either);
   6. ptxas's registers, stack and spills of the three redesigned BC7
      kernels, one JSON line describing every kernel (bounds from the work
      model below, at the FMA-free issue rate), the card's name and power
@@ -474,14 +487,36 @@ S3TC_PROFILED = ("bc1", "bc3", "bc1_exhaustive")
 CPU_CHECK_BLOCKS = 1024
 
 
-def make_signed_blocks(n_blocks=65536):
-    """int8 [n, 16, 4] blocks as the JAX bench makes its bc4s / bc5s input
-    (bench.py:203-209): the third draw from default_rng(44)."""
+def bench_rng44_draws(n_blocks=65536):
+    """The JAX bench's three draws from default_rng(44) (bench.py:203-209):
+    the eac_r11 values (int16 [n, 16] in [0, 2048)), the eac_r11s values
+    (in [-1024, 1024)) and the bc4s / bc5s blocks (int8 [n, 16, 4])."""
     import numpy as np
     rng = np.random.default_rng(44)
-    rng.integers(0, 2048, size=(n_blocks, 16), dtype=np.int16)
-    rng.integers(-1024, 1024, size=(n_blocks, 16), dtype=np.int16)
-    return rng.integers(-128, 128, size=(n_blocks, 16, 4)).astype(np.int8)
+    eac_u = rng.integers(0, 2048, size=(n_blocks, 16), dtype=np.int16)
+    eac_s = rng.integers(-1024, 1024, size=(n_blocks, 16), dtype=np.int16)
+    signed = rng.integers(-128, 128, size=(n_blocks, 16, 4)).astype(np.int8)
+    return eac_u, eac_s, signed
+
+
+# the ETC full-width configurations: (name, entry point, flags added to the
+# default Options, input)
+ETC_CONFIGS = (
+    ("etc1", "encode_etc1", 0, "texture"),                    # bench.py:249
+    ("etc1_fake709", "encode_etc1", 0x400, "texture"),  # ETC_USE_FAKE_BT709
+    ("etc2_alpha", "encode_etc2_alpha", 0, "texture"),        # bench.py:252
+    ("eac_r11", "encode_eac11", 0, "eac_unsigned"),           # bench.py:245
+    ("eac_r11s", "encode_eac11", 0, "eac_signed"),            # bench.py:246
+)
+ETC_PROFILED = ("etc1",)
+
+
+def etc_encoder(api, entry, blocks, options, dev, signed=False):
+    """A no-argument call of the ETC entry point `entry` on `blocks`."""
+    fn = getattr(api, entry)
+    if entry == "encode_eac11":
+        return lambda: fn(blocks, signed, options, device=dev)
+    return lambda: fn(blocks, options, device=dev)
 
 
 def profile_encode(encode, out_path):
@@ -672,6 +707,12 @@ def main(argv=None):
     ap.add_argument("--chunks-s3tc-exhaustive", default="",
                     help="comma-separated CHUNK_S3TC_EXHAUSTIVE sizes at "
                          "which to time the exhaustive encode_bc1")
+    ap.add_argument("--chunks-etc", default="",
+                    help="comma-separated CHUNK_ETC sizes at which to time "
+                         "encode_etc1 (default and FakeBT709)")
+    ap.add_argument("--chunks-eac", default="",
+                    help="comma-separated CHUNK_EAC sizes at which to time "
+                         "encode_etc2_alpha and encode_eac11")
     ap.add_argument("--pca-chunks", default="",
                     help="comma-separated shape list lengths (at most 243) "
                          "at which to time shape_pca alone with each chunk")
@@ -679,7 +720,8 @@ def main(argv=None):
                     help="also profile one full-width encode of each path "
                          "(profile_bc7.txt, profile_bc6h.txt, "
                          "profile_bc1.txt, profile_bc3.txt, "
-                         "profile_bc1_exhaustive.txt in --out)")
+                         "profile_bc1_exhaustive.txt, profile_etc1.txt in "
+                         "--out)")
     ap.add_argument("--out", default=os.path.join(REPO, "build", "chip_smoke"),
                     help="directory for chip_smoke.json (every launch's "
                          "time and work) and the profiles")
@@ -840,6 +882,27 @@ def main(argv=None):
     if any(bad_cases.values()):
         raise SystemExit(f"blocks differ from the JAX package's S3TC "
                          f"goldens: {bad_cases}")
+    with np.load(os.path.join(testdata, "etc_golden.npz")) as z:
+        etc_golden = {k: z[k] for k in z.files}
+    bad_cases = {}
+    n_golden = 0
+    for name in sorted(k[:-len("_pixels")] for k in etc_golden
+                       if k.endswith("_pixels")):
+        entry = ("encode_eac11" if name.startswith("eac") else
+                 "encode_etc1" if name.startswith("etc1") else
+                 "encode_etc2_alpha")
+        got = etc_encoder(api, entry, etc_golden[f"{name}_pixels"],
+                          ckt.Options(flags=int(etc_golden[f"{name}_flags"])),
+                          dev, signed=name == "eac_r11s")()
+        bad_cases[name] = int(
+            (got.cpu().numpy() != etc_golden[f"{name}_blocks"]).any(
+                axis=1).sum())
+        n_golden += got.shape[0]
+    phase("golden_etc", blocks=n_golden, cases=len(bad_cases),
+          mismatched_blocks=bad_cases)
+    if any(bad_cases.values()):
+        raise SystemExit(f"blocks differ from the JAX package's ETC "
+                         f"goldens: {bad_cases}")
 
     # 5a. the BC7 full-width run: 65,536 blocks, q50, default options
     tex = make_texture(seed=0)
@@ -985,7 +1048,8 @@ def main(argv=None):
     del out, again
 
     # 5c. the S3TC full-width runs: 65,536 blocks each, default options
-    signed_dev = torch.as_tensor(make_signed_blocks(tex.shape[0]), device=dev)
+    eac_u, eac_s, signed = bench_rng44_draws(tex.shape[0])
+    signed_dev = torch.as_tensor(signed, device=dev)
     rows = torch.arange(0, tex.shape[0], tex.shape[0] // CPU_CHECK_BLOCKS,
                         device=dev)
     s3tc_encoders = {}
@@ -1032,6 +1096,49 @@ def main(argv=None):
                              f"on the card differ from the CPU's")
         del out, again
 
+    # 5d. the ETC full-width runs: 65,536 blocks each, default options
+    inputs = {"texture": tex_dev,
+              "eac_unsigned": torch.as_tensor(eac_u, device=dev),
+              "eac_signed": torch.as_tensor(eac_s, device=dev)}
+    etc_encoders = {}
+    detail["full_width_etc"] = {}
+    for name, entry, extra_flags, source in ETC_CONFIGS:
+        blocks = inputs[source]
+        etc_opts = ckt.Options(flags=opts.flags | extra_flags)
+        encode_etc = etc_encoder(api, entry, blocks, etc_opts, dev,
+                                 signed=source == "eac_signed")
+        etc_encoders[name] = encode_etc
+        out = encode_etc()
+        torch.cuda.synchronize()
+        if out.shape != (blocks.shape[0], 8) or out.dtype != torch.uint8:
+            raise SystemExit(f"{name} returned {tuple(out.shape)} "
+                             f"{out.dtype}")
+        torch.cuda.reset_peak_memory_stats(dev)
+        times, again = timed(encode_etc)
+        peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
+        if not torch.equal(again, out):
+            raise SystemExit(f"{name} is not deterministic")
+        t0 = time.perf_counter()
+        cpu = etc_encoder(api, entry, blocks.index_select(0, rows).cpu(),
+                          etc_opts, "cpu", signed=source == "eac_signed")()
+        cpu_s = time.perf_counter() - t0
+        bad = int((out.index_select(0, rows).cpu() != cpu).any(dim=1).sum())
+        ms = statistics.median(times)
+        result = dict(
+            config=name, blocks=blocks.shape[0],
+            chunk=(api.CHUNK_ETC if entry == "encode_etc1"
+                   else api.CHUNK_EAC),
+            encode_ms=times, encode_ms_median=ms,
+            mtexels_per_s=blocks.shape[0] * 16 / (ms * 1e-3) / 1e6,
+            peak_gib=peak_gib, cpu_blocks_compared=len(rows),
+            cpu_mismatched_blocks=bad, cpu_seconds=cpu_s)
+        phase("full_width_etc", **result)
+        detail["full_width_etc"][name] = result
+        if bad:
+            raise SystemExit(f"{name}: {bad} of {len(rows)} blocks encoded "
+                             f"on the card differ from the CPU's")
+        del out, again
+
     full = {**{k: full_run for k in BC7_KERNELS}, BC6H_KERNEL: full_bc6h}
     wides = {**{k: wide for k in BC7_KERNELS}, BC6H_KERNEL: wide_bc6h}
     for name in KERNELS:
@@ -1049,7 +1156,8 @@ def main(argv=None):
     if args.profile:
         for label, encode in (("bc7", encode_bc7_full),
                               ("bc6h", encode_bc6h_full),
-                              *((k, s3tc_encoders[k]) for k in S3TC_PROFILED)):
+                              *((k, s3tc_encoders[k]) for k in S3TC_PROFILED),
+                              *((k, etc_encoders[k]) for k in ETC_PROFILED)):
             prof = profile_encode(encode, os.path.join(
                 args.out, f"profile_{label}.txt"))
             detail[f"profile_{label}"] = prof
@@ -1071,15 +1179,21 @@ def main(argv=None):
                             encode_bc6h_full, dev)
         phase("chunk_sweep_bc6h", results=sweep)
         detail["chunk_sweep_bc6h"] = sweep
-    for attr, option, names in (
-            ("CHUNK_S3TC", args.chunks_s3tc, ("bc1", "bc3")),
+    encoders = {**s3tc_encoders, **etc_encoders}
+    for attr, option, phase_name, names in (
+            ("CHUNK_S3TC", args.chunks_s3tc, "chunk_sweep_s3tc",
+             ("bc1", "bc3")),
             ("CHUNK_S3TC_EXHAUSTIVE", args.chunks_s3tc_exhaustive,
-             ("bc1_exhaustive",))):
+             "chunk_sweep_s3tc", ("bc1_exhaustive",)),
+            ("CHUNK_ETC", args.chunks_etc, "chunk_sweep_etc",
+             ("etc1", "etc1_fake709")),
+            ("CHUNK_EAC", args.chunks_eac, "chunk_sweep_etc",
+             ("etc2_alpha", "eac_r11"))):
         for name in names if option else ():
             sweep = chunk_sweep(api, attr,
                                 [int(c) for c in option.split(",")],
-                                s3tc_encoders[name], dev)
-            phase("chunk_sweep_s3tc", config=name, results=sweep)
+                                encoders[name], dev)
+            phase(phase_name, config=name, results=sweep)
             detail[f"chunk_sweep_{name}"] = sweep
 
     # 6. the kernels line, the card, and the result

@@ -1,14 +1,17 @@
-"""Public S3TC, BC7 and BC6H API.
+"""Public S3TC, BC7, BC6H, ETC1, ETC2 alpha and EAC11 API.
 
-The PyTorch counterpart of cvtt::Kernels' S3TC, BC7 and BC6H entry points
+The PyTorch counterpart of cvtt::Kernels' entry points
 (ConvectionKernels.h:236-277, ConvectionKernels_API.cpp). Every entry point
-takes a batch of N blocks ([N, 16, 4] pixels) and runs on `device`: the
-CUDA card by default, where the hand-written kernels run, or the CPU when
-the caller asks for it, where their plain PyTorch versions run.
+takes a batch of N blocks ([N, 16, C] pixels, or [N, 16] values for
+encode_eac11), converted and checked as the JAX package's entry points
+convert them, and runs on `device`: the CUDA card by default, where the
+hand-written kernels run, or the CPU when the caller asks for it, where
+their plain PyTorch versions run.
 
 Blocks are independent, so a large batch is encoded in host-side chunks
-(CHUNK_S3TC, CHUNK_S3TC_EXHAUSTIVE, CHUNK_BC7, CHUNK_BC6H blocks), which
-bounds the device memory of the per-candidate tensors.
+(CHUNK_S3TC, CHUNK_S3TC_EXHAUSTIVE, CHUNK_BC7, CHUNK_BC6H, CHUNK_ETC,
+CHUNK_EAC blocks), which bounds the device memory of the per-candidate
+tensors.
 """
 
 from __future__ import annotations
@@ -17,7 +20,7 @@ import numpy as np
 import torch
 
 from . import bc7_plan
-from .models import bc6h, bc7, decode, s3tc
+from .models import bc6h, bc7, decode, etc, s3tc
 from .options import Flags, Options
 
 # Blocks per S3TC encode chunk, and per chunk of an exhaustive BC1-BC3
@@ -39,6 +42,15 @@ CHUNK_BC7 = 65536
 # times that; PERF.md records the sweep on an H100 this value comes from.
 CHUNK_BC6H = 65536
 
+# Blocks per ETC1 encode chunk and per ETC2 alpha / EAC11 chunk. ETC1's
+# differential pair resolve holds [N, K_t, A] grids (up to 76 x 286 int32
+# pairs a block, 81 x 648 with FakeBT709) and the alpha search [N, 16, 320]
+# grids. On an H100 one chunk of 65,536 is the fastest of the sizes swept,
+# peaking at 11.8 GiB for ETC1 (18.0 with FakeBT709) and 14.2 for the alpha
+# search; PERF.md records the sweeps.
+CHUNK_ETC = 65536
+CHUNK_EAC = 65536
+
 
 def resolve_device(device=None) -> torch.device:
     """`device`, or the CUDA card when None; raises when CUDA is asked for
@@ -50,14 +62,41 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+_NUMPY_DTYPES = {torch.uint8: np.uint8, torch.int8: np.int8,
+                 torch.int16: np.int16}
+
+
+def _cast(pixels, dtype) -> torch.Tensor:
+    """`pixels` as a `dtype` tensor, converted as the JAX package's entry
+    points convert (jnp.asarray(pixels, dtype), which calls np.asarray):
+    an array-like goes through np.asarray itself; a tensor, which stays on
+    its device, is converted by NumPy's rules: integers wrap, floats
+    truncate toward zero to int32 (NaN, infinities and values outside
+    int32 giving INT32_MIN) and then wrap."""
+    if not torch.is_tensor(pixels):
+        return torch.from_numpy(np.array(pixels, dtype=_NUMPY_DTYPES[dtype]))
+    if pixels.dtype == dtype:
+        return pixels
+    t = pixels
+    if t.is_floating_point():
+        t = t.double()
+        inside = torch.isfinite(t) & (t > -2.0**31 - 1) & (t < 2.0**31)
+        t = torch.where(inside, t.trunc(), -2.0**31).to(torch.int64)
+    return t.to(dtype)
+
+
 def _as_blocks(pixels, device, dtype=torch.uint8) -> torch.Tensor:
-    t = torch.as_tensor(np.asarray(pixels) if not torch.is_tensor(pixels)
-                        else pixels)
-    if t.dim() != 3 or t.shape[1] != 16 or t.shape[2] != 4:
-        raise ValueError(f"expected [N, 16, 4] pixel blocks, got "
+    """[N, 16, 4] `dtype` blocks on `device` from any [N, 16, C] array-like
+    (C >= 1). The JAX package reads channel c of its input with a static
+    index, which clamps to the last channel, so a missing channel repeats
+    the last one and channels past the fourth are not read."""
+    t = _cast(pixels, dtype)
+    if t.dim() != 3 or t.shape[1] != 16 or t.shape[2] < 1:
+        raise ValueError(f"expected [N, 16, C] pixel blocks, got "
                          f"{tuple(t.shape)}")
-    if t.dtype != dtype:
-        raise TypeError(f"expected {dtype} pixels, got {t.dtype}")
+    c = t.shape[2]
+    if c != 4:
+        t = t[:, :, [min(ch, c - 1) for ch in range(4)]]
     return t.to(device)
 
 
@@ -236,3 +275,38 @@ def encode_bc5s(pixels, options: Options = Options(),
     input, int8 [N, 16, 4] -> uint8 [N, 16] on `device`."""
     return _encode_s3tc(_bc5(options, True), pixels, options, device, 16,
                         signed=True)
+
+
+def encode_etc1(pixels, options: Options = Options(),
+                device=None) -> torch.Tensor:
+    """Kernels::EncodeETC1 (API.cpp:201-214): uint8 [N, 16, 4] -> uint8
+    [N, 8] on `device`."""
+    dev = resolve_device(device)
+    blocks = _as_blocks(pixels, dev)
+    return _chunked(lambda b: etc.compress_etc1(b, options), blocks,
+                    CHUNK_ETC, 8)
+
+
+def encode_etc2_alpha(pixels, options: Options = Options(),
+                      device=None) -> torch.Tensor:
+    """Kernels::EncodeETC2Alpha (API.cpp:246-257): the alpha channel of
+    uint8 [N, 16, 4] -> uint8 [N, 8] on `device`."""
+    del options  # the alpha search has no option
+    dev = resolve_device(device)
+    blocks = _as_blocks(pixels, dev)
+    return _chunked(etc.compress_etc2_alpha, blocks, CHUNK_EAC, 8)
+
+
+def encode_eac11(pixels, signed: bool = False, options: Options = Options(),
+                 device=None) -> torch.Tensor:
+    """Kernels::EncodeETC2Alpha11 (API.cpp:259-268): one 11-bit channel,
+    int16 [N, 16] (clamped to [0, 2047], or [-1023, 1023] when `signed`)
+    -> uint8 [N, 8] on `device`."""
+    del options  # the alpha search has no option
+    dev = resolve_device(device)
+    values = _cast(pixels, torch.int16)
+    if values.dim() != 2 or values.shape[1] != 16:
+        raise ValueError(f"expected [N, 16] values, got "
+                         f"{tuple(values.shape)}")
+    return _chunked(lambda b: etc.compress_eac11(b, signed),
+                    values.to(dev), CHUNK_EAC, 8)

@@ -112,6 +112,18 @@ def lex_min_with_index(x, dim):
     return best, idx
 
 
+def take_winner(x, win):
+    """x[i, win[i]] for x [N, K], win [N] (the JAX package's one-hot
+    masked reduce, which equals a gather for the values stored there:
+    ints, bools and floats other than -0.0)."""
+    return torch.gather(x, 1, win.long()[:, None]).squeeze(1)
+
+
+def take_winner_t(x, win):
+    """x[win[j], j] for x [K, N] (block-minor layout), win [N]."""
+    return torch.gather(x, 0, win.long()[None, :]).squeeze(0)
+
+
 def compute_tweak_factors(tweak: int, range_: int) -> tuple[np.float32, np.float32]:
     """Util::ComputeTweakFactors (ConvectionKernels_Util.cpp:75-84).
 

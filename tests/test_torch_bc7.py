@@ -127,6 +127,56 @@ def test_q50_golden_block62_refine_is_ieee():
     assert_blocks_equal(got, blocks[62:63])
 
 
+def jax_reads(px):
+    """The [N, 16, 4] uint8 channels the JAX package's encode_bc7 reads from
+    `px`: its entry point's cast and check, then its static channel index
+    (models/bc7.py:1210-1213), which clamps to the last channel."""
+    from convectionkernels_tpu import api as jax_api
+    arr = jax_api._as_block_array(px)
+    return np.stack([np.asarray(arr[:, :, ch]) for ch in range(4)], -1)
+
+
+def test_encode_takes_what_jax_takes():
+    """Inputs JAX's encode_bc7 reads as the golden's pixels (int32 values
+    that wrap, floats that truncate, a list, a tensor, a fifth channel)
+    give the golden's bytes; [N, 16, 1] and [N, 16, 3] give the bytes of
+    the channels JAX reads from them (held against JAX run op by op under
+    `-m slow`). A wrong rank or a second axis other than 16 is refused."""
+    px, blocks, flags = load_light("alpha")
+    px, blocks = px[:6], blocks[:6]
+    wide = px.astype(np.int32) + 256 * np.random.default_rng(7).integers(
+        -2, 3, px.shape)
+    for form in (wide, px.astype(np.float64) + 0.25, px.tolist(),
+                 torch.as_tensor(px), np.concatenate([px, px[:, :, :1]], 2)):
+        np.testing.assert_array_equal(
+            jax_reads(form.numpy() if torch.is_tensor(form) else form), px)
+        assert_blocks_equal(port_light(form, flags), blocks)
+    for c in (1, 3):
+        assert_blocks_equal(port_light(px[:, :, :c], flags),
+                            port_light(jax_reads(px[:, :, :c]), flags).numpy())
+    for bad in (px[:, :, 0], px[:, :8], px[:, :, :0]):
+        with pytest.raises(ValueError):
+            port_light(bad, flags)
+
+
+@pytest.mark.slow
+def test_encode_fewer_channels_matches_jax_op_by_op():
+    """[N, 16, 1] and [N, 16, 3] against the JAX package's pack run op by op
+    on what its entry point reads from them (about 90 s on a CPU)."""
+    import jax
+
+    from convectionkernels_tpu.models import bc7 as jax_bc7
+    px, _, flags = load_light("alpha")
+    forms = (px[:2, :, :1], px[2:4, :, :3])
+    o = ck.Options(flags=flags, **LIGHT)
+    with jax.disable_jit():
+        want = np.asarray(jax_bc7.pack(
+            np.concatenate([jax_reads(f) for f in forms]), o.flags,
+            o.channel_weights(), jax_plan(5), o.refine_rounds_bc7))
+    got = torch.cat([port_light(f, flags) for f in forms])
+    assert_blocks_equal(got, want)
+
+
 def test_encode_chunking_is_exact(monkeypatch):
     px, blocks, flags = load_light("alpha")
     monkeypatch.setattr(api, "CHUNK_BC7", 5)
@@ -198,8 +248,9 @@ import torch
 import convectionkernels_tpu_torch as ckt
 from convectionkernels_tpu_torch import (api, convert, cuda_lib,
                                          exact_probe)
-from convectionkernels_tpu_torch.models import bc7, bc7_kernel, decode, s3tc
-from convectionkernels_tpu_torch.tables import s3tc_single_color
+from convectionkernels_tpu_torch.models import (bc7, bc7_kernel, decode, etc,
+                                                s3tc)
+from convectionkernels_tpu_torch.tables import etc_tables, s3tc_single_color
 loaded = [m for m in sys.modules
           if m == "convectionkernels_tpu" or m.startswith("convectionkernels_tpu.")]
 assert not loaded, loaded
@@ -208,6 +259,8 @@ if not torch.cuda.is_available():
     for call in (lambda: ckt.encode_bc7(px, quality=5),
                  lambda: ckt.encode_bc1(px),
                  lambda: ckt.encode_bc5s(px.to(torch.int8)),
+                 lambda: ckt.encode_etc1(px),
+                 lambda: ckt.encode_eac11(px[:, :, 0].to(torch.int16)),
                  lambda: ckt.decode_bc7(torch.zeros((2, 16), dtype=torch.uint8))):
         try:
             call()
@@ -220,6 +273,10 @@ out = ckt.encode_bc7(px, ckt.Options(refine_rounds_bc7=1, seed_points=1),
 assert out.shape == (2, 16) and out.dtype == torch.uint8
 assert ckt.decode_bc7(out, device="cpu").shape == (2, 16, 4)
 assert ckt.encode_bc1(px, device="cpu").shape == (2, 8)
+assert ckt.encode_etc1(px, device="cpu").shape == (2, 8)
+assert ckt.encode_etc2_alpha(px, device="cpu").shape == (2, 8)
+values = px[:, :, 0].to(torch.int16)
+assert ckt.encode_eac11(values, device="cpu").shape == (2, 8)
 assert len(s3tc_single_color.load_tables()) == 8
 print("ok")
 """

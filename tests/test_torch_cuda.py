@@ -2,9 +2,9 @@
 
 Each kernel wrapper is held bit for bit against its plain PyTorch version
 on the same card inputs, encode_bc7, encode_bc6hu and encode_bc6hs on the
-card against the stored JAX bytes, and the S3TC entry points (eager tensor
-code, no kernel of their own) on the card against the stored JAX bytes and
-against the port on the CPU. This file imports nothing of JAX, so it runs on a machine
+card against the stored JAX bytes, and the S3TC and ETC entry points
+(eager tensor code, no kernel of their own) on the card against the stored
+JAX bytes and against the port on the CPU. This file imports nothing of JAX, so it runs on a machine
 without it:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -21,12 +21,12 @@ from convectionkernels_tpu_torch import exact_probe
 from convectionkernels_tpu_torch.models import (bc6h, bc6h_kernel, bc7,
                                                 bc7_kernel)
 from tests import blockgen
-from tests.test_torch_goldens import (BC6H_CASES, DEFAULT, FAST, LIGHT,
-                                      LIGHT_CASES, PUNCH, S3TC_CASES,
+from tests.test_torch_goldens import (BC6H_CASES, DEFAULT, ETC_CASES, FAST,
+                                      LIGHT, LIGHT_CASES, PUNCH, S3TC_CASES,
                                       UNIFORM, hdr_blocks, hdr_edge_blocks,
-                                      load_bc6h, load_light, load_q50,
-                                      load_s3tc, punch_through_blocks,
-                                      signed_blocks)
+                                      load_bc6h, load_etc, load_light,
+                                      load_q50, load_s3tc,
+                                      punch_through_blocks, signed_blocks)
 
 pytestmark = pytest.mark.cuda
 
@@ -420,3 +420,70 @@ def test_encode_s3tc_above_the_chunk(card, entry, monkeypatch):
     got = s3tc_encode(name, fields, px, card)
     want = s3tc_encode(name, fields, px, "cpu")
     np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+
+
+def etc_encode(entry, flags, px, device):
+    if entry.startswith("eac11"):
+        return ckt.encode_eac11(px, signed=entry == "eac11s", device=device)
+    return getattr(ckt, f"encode_{entry}")(px, ckt.Options(flags=flags),
+                                           device=device)
+
+
+@pytest.mark.parametrize("case", ETC_CASES, ids=[c[0] for c in ETC_CASES])
+def test_encode_etc_golden_on_card(card, case):
+    name, entry, _, flags = case
+    px, _, blocks, _ = load_etc(name)
+    got = etc_encode(entry, flags, px, None)      # device=None: the card
+    assert got.device.type == "cuda"
+    np.testing.assert_array_equal(got.cpu().numpy(), blocks)
+
+
+@pytest.fixture(scope="module")
+def full_width_inputs():
+    """1,024 blocks, every 64th, of chip_smoke.py's full-width ETC inputs:
+    the BC7 texture and the JAX bench's int16 EAC values."""
+    import chip_smoke
+    eac_u, eac_s, _ = chip_smoke.bench_rng44_draws()
+    return {"texture": chip_smoke.make_texture(seed=0)[::64],
+            "eac_unsigned": eac_u[::64], "eac_signed": eac_s[::64]}
+
+
+ETC_FULL = (("etc1", "etc1", 0x108), ("etc1_fake709", "etc1", 0x508),
+            ("etc2_alpha", "etc2_alpha", 0x108),
+            ("eac_r11", "eac11", 0x108), ("eac_r11s", "eac11s", 0x108))
+
+
+@pytest.mark.parametrize("config", ETC_FULL, ids=[c[0] for c in ETC_FULL])
+def test_encode_etc_full_width_card_equals_cpu(card, full_width_inputs,
+                                               config, monkeypatch):
+    """1,024 blocks of each full-width configuration, in chunks of 300 on
+    the card and one chunk on the CPU."""
+    from convectionkernels_tpu_torch import api
+    _, entry, flags = config
+    source = {"eac11": "eac_unsigned", "eac11s": "eac_signed"}.get(
+        entry, "texture")
+    px = torch.as_tensor(full_width_inputs[source])
+    want = etc_encode(entry, flags, px, "cpu")
+    monkeypatch.setattr(api, "CHUNK_ETC", 300)
+    monkeypatch.setattr(api, "CHUNK_EAC", 300)
+    got = etc_encode(entry, flags, px.to(card), card)
+    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+
+
+def test_card_tensors_cast_as_numpy(card):
+    """A card tensor of another dtype is converted as NumPy converts it,
+    the JAX entry points' cast: floats truncate through int32 (NaN,
+    infinities and values outside int32 give INT32_MIN), integers wrap."""
+    from convectionkernels_tpu_torch import api
+    f = torch.tensor([-1.5, 300.7, 255.9, 3.7, -0.5, float("nan"), 1e10,
+                      -1e10, 3e9, 2.0**31 + 256, 70000.5, float("inf"),
+                      -float("inf"), 2.0**31 - 0.5])
+    i = torch.tensor([-1, 300, 255, -129, 70000, 2**40 + 5])
+    for t in (f, f.double(), f.half(), i, i.int()):
+        for dtype, np_dtype in ((torch.uint8, np.uint8), (torch.int8,
+                                                           np.int8),
+                                (torch.int16, np.int16)):
+            got = api._cast(t.to(card), dtype)
+            assert got.device.type == "cuda" and got.dtype == dtype
+            np.testing.assert_array_equal(
+                got.cpu().numpy(), np.asarray(t.numpy(), dtype=np_dtype))

@@ -1,4 +1,4 @@
-"""JAX-produced BC7, BC6H and S3TC goldens for the torch port, and their
+"""JAX-produced BC7, BC6H, S3TC and ETC goldens for the torch port, and their
 re-derivation.
 
 The JAX package encodes a BC7 configuration on a CPU in 25-110 s (trace
@@ -31,7 +31,14 @@ op by op, composed as its api.py composes them, and, except for the cases
 of S3TC_NOT_JITTED, `api_blocks` from its jitted `encode_bc1` ...
 `encode_bc5s`. The two agree in every case that has both.
 
-Regenerate the files with:  python -m tests.test_torch_goldens [bc7|bc6h|s3tc]
+The ETC golden (etc_golden.npz) holds, for each case of ETC_CASES, the
+pixels (uint8 [N, 16, 4], or int16 [N, 16] for EAC11), the case's Options
+flags (`flags`), `blocks` from the JAX package's `models.etc` functions run
+op by op, and, except for the cases of ETC_NOT_JITTED, `api_blocks` from
+its jitted `encode_etc1` / `encode_etc2_alpha` / `encode_eac11`.
+
+Regenerate the files with:
+    python -m tests.test_torch_goldens [bc7|bc6h|s3tc|etc]
 """
 
 from __future__ import annotations
@@ -49,6 +56,7 @@ Q50_PATH = os.path.join(TESTDATA, "bc7_q50_golden.npz")
 LIGHT_PATH = os.path.join(TESTDATA, "bc7_light_golden.npz")
 BC6H_PATH = os.path.join(TESTDATA, "bc6h_golden.npz")
 S3TC_PATH = os.path.join(TESTDATA, "s3tc_golden.npz")
+ETC_PATH = os.path.join(TESTDATA, "etc_golden.npz")
 
 LIGHT = dict(seed_points=1, refine_rounds_s3tc=1, refine_rounds_iic=1,
              refine_rounds_bc7=1, refine_rounds_bc6h=1)
@@ -111,6 +119,73 @@ S3TC_SIGNED = ("bc4s", "bc5s")
 # minutes, still growing. Their golden holds the op-by-op bytes only.
 S3TC_NOT_JITTED = ("bc3_default", "bc4u_default", "bc5u_default",
                    "bc4s_default", "bc5s_default")
+
+
+FAKE_BT709 = 0x400           # Flags.ETC_USE_FAKE_BT709
+FAKE_BT709_ACCURATE = 0x800  # Flags.ETC_FAKE_BT709_ACCURATE
+
+# (name, entry point, corpus, flags) of the ETC goldens
+ETC_CASES = (
+    ("etc1_default", "etc1", "mixed1", DEFAULT),
+    ("etc1_uniform", "etc1", "mixed2", DEFAULT | UNIFORM),
+    ("etc1_fake709", "etc1", "mixed3", DEFAULT | FAKE_BT709),
+    ("etc1_fake709_accurate", "etc1", "mixed4",
+     DEFAULT | FAKE_BT709 | FAKE_BT709_ACCURATE),
+    ("etc1_ties", "etc1", "ties", DEFAULT),
+    ("etc2_alpha", "etc2_alpha", "alpha", DEFAULT),
+    ("eac_r11", "eac11", "eac", DEFAULT),
+    ("eac_r11s", "eac11s", "eacs", DEFAULT),
+)
+# Cases whose jitted JAX encoder is not stored (none: XLA:CPU compiles
+# every ETC case's encoder within minutes)
+ETC_NOT_JITTED = ()
+
+
+def eac_blocks(n, seed, signed):
+    """int16 [n, 16] EAC11 values: a quarter narrow (a base plus a small
+    spread), a quarter flat, the rest spread over the clamp range and past
+    it ([0, 2047] or [-1024, 1023]), the first block the int16 extremes."""
+    rng = np.random.default_rng(seed)
+    lo, hi = (-1024, 1023) if signed else (0, 2047)
+    vals = rng.integers(lo - 300, hi + 300, size=(n, 16))
+    q = n // 4
+    vals[:q] = rng.integers(lo, hi, size=(q, 1)) + rng.integers(
+        -20, 21, size=(q, 16))
+    vals[q:2 * q] = rng.integers(lo - 50, hi + 50, size=(q, 1))
+    vals[0] = np.tile([-32768, 32767, lo, hi, lo - 1, hi + 1, 0, -1], 2)
+    return vals.astype(np.int16)
+
+
+def etc_ties_blocks():
+    """32 blocks where ETC1's resolve meets equal totals: the quality
+    corpus block that exposed the reference scan's re-acceptance
+    (tests/test_etc_resolve_semantics.py), flat blocks, two-color blocks
+    and grayish blocks with channel-coincident errors."""
+    from tests.test_etc_resolve_semantics import CORPUS_BLOCK_9
+    rng = np.random.default_rng(611)
+    out = [np.concatenate([CORPUS_BLOCK_9, np.full((16, 1), 255, np.uint8)],
+                          axis=1)]
+    out += list(blockgen.flat_blocks(7, seed=613))
+    for _ in range(12):
+        pal = rng.integers(0, 256, (2, 4))
+        pal[:, 3] = 255
+        out.append(pal[rng.integers(0, 2, 16)].astype(np.uint8))
+    for _ in range(12):
+        g = rng.integers(0, 256, (16, 1))
+        px = np.clip(g + rng.integers(-3, 4, (16, 4)), 0, 255)
+        px[:, 3] = 255
+        out.append(px.astype(np.uint8))
+    return np.stack(out)
+
+
+def etc_corpus(name):
+    if name.startswith("mixed"):
+        return blockgen.mixed_blocks(64, seed=600 + int(name[-1]))
+    if name == "ties":
+        return etc_ties_blocks()
+    if name == "alpha":
+        return blockgen.alpha_blocks(64, seed=605)
+    return eac_blocks(64, seed=607, signed=name == "eacs")
 
 
 def s3tc_options_row(fields):
@@ -313,6 +388,38 @@ def jax_s3tc_op_by_op(px, fmt, fields):
     return np.asarray(out)
 
 
+def jax_etc_bytes(px, entry, flags):
+    import convectionkernels_tpu as ck
+    if entry.startswith("eac11"):
+        return np.asarray(ck.encode_eac11(px, signed=entry == "eac11s"))
+    return np.asarray(getattr(ck, f"encode_{entry}")(
+        px, ck.Options(flags=flags)))
+
+
+def jax_etc_op_by_op(px, entry, flags):
+    """The JAX package's models.etc functions, not jitted."""
+    import jax
+
+    from convectionkernels_tpu.models import etc
+    from convectionkernels_tpu.options import Options
+    o = Options(flags=flags)
+    with jax.disable_jit():
+        if entry == "etc1":
+            return np.asarray(etc.compress_etc1(px, o))
+        if entry == "etc2_alpha":
+            return np.asarray(etc.compress_etc2_alpha(px, o))
+        return np.asarray(etc.compress_eac11(px, entry == "eac11s", o))
+
+
+def load_etc(name):
+    """(pixels, flags, bytes the port must give, bytes of the jitted JAX
+    API, or None for a case of ETC_NOT_JITTED)."""
+    with np.load(ETC_PATH) as z:
+        api = z[f"{name}_api_blocks"] if f"{name}_api_blocks" in z else None
+        return (z[f"{name}_pixels"], int(z[f"{name}_flags"]),
+                z[f"{name}_blocks"], api)
+
+
 def load_s3tc(name):
     """(pixels, bytes the port must give, bytes of the jitted JAX API, or
     None for a case of S3TC_NOT_JITTED)."""
@@ -390,6 +497,37 @@ def test_s3tc_golden_matches_jax(case):
                                       api_blocks)
 
 
+@pytest.mark.slow
+@pytest.mark.parametrize("case", ETC_CASES, ids=[c[0] for c in ETC_CASES])
+def test_etc_golden_matches_jax(case):
+    name, entry, corpus, flags = case
+    px, stored_flags, blocks, api_blocks = load_etc(name)
+    np.testing.assert_array_equal(px, etc_corpus(corpus))
+    assert stored_flags == flags
+    np.testing.assert_array_equal(jax_etc_op_by_op(px, entry, flags), blocks)
+    assert (api_blocks is None) == (name in ETC_NOT_JITTED)
+    if api_blocks is not None:
+        np.testing.assert_array_equal(jax_etc_bytes(px, entry, flags),
+                                      api_blocks)
+
+
+def _write_etc():
+    import time
+    out = {}
+    for name, entry, corpus, flags in ETC_CASES:
+        px = etc_corpus(corpus)
+        out[f"{name}_pixels"] = px
+        out[f"{name}_flags"] = np.int32(flags)
+        t0 = time.perf_counter()
+        out[f"{name}_blocks"] = jax_etc_op_by_op(px, entry, flags)
+        t1 = time.perf_counter()
+        if name not in ETC_NOT_JITTED:
+            out[f"{name}_api_blocks"] = jax_etc_bytes(px, entry, flags)
+        print("etc", name, f"op by op {t1 - t0:.1f} s, jitted "
+              f"{time.perf_counter() - t1:.1f} s", flush=True)
+    np.savez_compressed(ETC_PATH, **out)
+
+
 def _write_s3tc():
     out = {}
     for name, fmt, corpus, fields in S3TC_CASES:
@@ -433,7 +571,7 @@ def _write_bc7():
     print("q50", flush=True)
 
 
-def _write(which=("bc7", "bc6h", "s3tc")):
+def _write(which=("bc7", "bc6h", "s3tc", "etc")):
     import tests.conftest  # noqa: F401  (exactness XLA flags, CPU platform)
 
     os.makedirs(TESTDATA, exist_ok=True)
@@ -443,8 +581,10 @@ def _write(which=("bc7", "bc6h", "s3tc")):
         _write_bc6h()
     if "s3tc" in which:
         _write_s3tc()
+    if "etc" in which:
+        _write_etc()
 
 
 if __name__ == "__main__":
     import sys
-    _write(tuple(sys.argv[1:]) or ("bc7", "bc6h", "s3tc"))
+    _write(tuple(sys.argv[1:]) or ("bc7", "bc6h", "s3tc", "etc"))

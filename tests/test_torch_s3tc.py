@@ -28,7 +28,8 @@ from convectionkernels_tpu_torch.options import Flags
 from convectionkernels_tpu_torch.tables import s3tc_single_color
 from tests import blockgen
 from tests.test_torch_goldens import (S3TC_CASES, S3TC_NOT_JITTED,
-                                      load_s3tc, signed_blocks)
+                                      jax_s3tc_op_by_op, load_s3tc,
+                                      signed_blocks)
 from tests.test_torch_ops import assert_lists_same, assert_same, both
 
 CW = [np.float32(w) for w in ckt.Options().channel_weights()]
@@ -95,11 +96,43 @@ def test_jitted_goldens_equal_op_by_op():
 
 
 def test_entry_points_check_input_dtype():
+    """Inputs the JAX entry points accept give their bytes: [N, 16, C] with
+    C = 1, 3 and 5 (JAX reads a missing channel as the last one), int32
+    that wraps, int8 for an unsigned format and uint8 for a signed one
+    (both wrap), floats (truncated), lists and tensors; the JAX entry
+    points' own cast and check, then its models run op by op. The inputs
+    JAX refuses are refused, and empty batches give empty outputs."""
+    from convectionkernels_tpu import api as jax_api
+    light = dict(seed_points=1, refine_rounds_s3tc=1, refine_rounds_iic=1)
+    base = blockgen.alpha_blocks(8, seed=99)[:3]
+    wide = base.astype(np.int32) + 256 * np.random.default_rng(99).integers(
+        -2, 3, base.shape)
+    for fmt, dtype, forms in (
+            ("bc4u", jnp.uint8, (base[:, :, :1], wide, base.tolist(),
+                                 base.astype(np.float32) + 0.5)),
+            ("bc4s", jnp.int8, (base, wide, torch.as_tensor(base))),
+            ("bc1", jnp.uint8, (base[:, :, :3], base.view(np.int8),
+                                np.concatenate([base, base[:, :, :1]], 2),
+                                torch.as_tensor(wide))),
+            ("bc5u", jnp.uint8, (base[:, :, :1], base[:, :, :3]))):
+        for px in forms:
+            arr = jax_api._as_block_array(
+                px.numpy() if torch.is_tensor(px) else px, dtype)
+            want = jax_s3tc_op_by_op(arr, fmt, light)
+            np.testing.assert_array_equal(
+                port_encode(px, fmt, light).numpy(), want,
+                f"{fmt} {np.shape(px)}")
     px = np.zeros((2, 16, 4), dtype=np.uint8)
-    with pytest.raises(TypeError):
-        ckt.encode_bc4s(px, device="cpu")
-    with pytest.raises(TypeError):
-        ckt.encode_bc1(px.view(np.int8), device="cpu")
+    for bad in (px[:, :, 0], px[:, :8], px[:, :, :0]):
+        with pytest.raises((ValueError, IndexError)):
+            jax_s3tc_op_by_op(jax_api._as_block_array(bad), "bc4u", light)
+        for fmt in ("bc1", "bc4s"):
+            with pytest.raises(ValueError):
+                port_encode(bad, fmt, light)
+    with pytest.raises(OverflowError):
+        jax_api._as_block_array([[[300] * 4] * 16])
+    with pytest.raises(OverflowError):
+        ckt.encode_bc1([[[300] * 4] * 16], device="cpu")
     for fmt, width in (("bc1", 8), ("bc3", 16), ("bc5u", 16)):
         out = getattr(ckt, f"encode_{fmt}")(px[:0], device="cpu")
         assert out.shape == (0, width)
