@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the torch port's main paths (BC7 q50, BC6H, S3TC, ETC1, ETC2 alpha
-and EAC11 encode) on one CUDA card and check them.
+"""Drive the torch port's main paths (BC7 q50, BC6H, S3TC, ETC1, ETC2 and
+EAC11 encode) on one CUDA card and check them.
 
     python3 chip_smoke.py                  # the check, on one card
     python3 chip_smoke.py --chunks 8192,16384,32768,65536
@@ -19,9 +19,14 @@ and EAC11 encode) on one CUDA card and check them.
     python3 chip_smoke.py --chunks-eac 16384,65536
                                            # also time encode_etc2_alpha and
                                            # encode_eac11 per chunk size
+    python3 chip_smoke.py --chunks-etc2 16384,65536
+                                           # also time encode_etc2 and
+                                           # encode_etc2_punchthrough per
+                                           # chunk size
     python3 chip_smoke.py --profile        # also profile one full-width encode
                                            # of each path (BC7, BC6H, BC1,
-                                           # BC3, exhaustive BC1 and ETC1)
+                                           # BC3, exhaustive BC1, ETC1, ETC2
+                                           # and ETC2 punchthrough)
     python3 chip_smoke.py --pca-chunks 81,192,243
                                            # also time shape_pca alone for lists
                                            # of these lengths, each chunk forced
@@ -39,9 +44,12 @@ Phases, each printed on its own line; a failed check prints
      weights): f32 outputs compared as int32 bits, so the tolerance is 0;
   4. encode_bc7, encode_bc6hu, encode_bc6hs, the S3TC entry points (every
      case of the stored S3TC goldens) and the ETC entry points (every case
-     of the stored ETC goldens: ETC1 weighted, uniform, FakeBT709 fast and
-     accurate, tie-prone blocks; ETC2 alpha; EAC11 unsigned and signed) on
-     the card against the JAX package's golden bytes;
+     of the stored ETC goldens, each through its stored entry point and
+     Options: ETC1 weighted, uniform, FakeBT709 fast and accurate,
+     tie-prone blocks; ETC2 alpha; EAC11 unsigned and signed; ETC2
+     weighted, uniform, FakeBT709, blocks built for each mode, RGBA,
+     punchthrough at four thresholds) on the card against the JAX
+     package's golden bytes;
   5. the full-width runs, each timed with CUDA events (median of 3 after a
      warm-up) with its kernels' launches counted over the main path, and
      then each kernel, launched at the full width, against its plain
@@ -60,11 +68,14 @@ Phases, each printed on its own line; a failed check prints
          timed, its peak device memory read, and 1,024 of its blocks held
          byte-equal to the port's CPU bytes for the same blocks (S3TC has
          no kernel: this is its card-versus-plain check);
-       - ETC: five configurations at 65,536 blocks with default Options,
-         etc1, etc1 with FakeBT709 and etc2_alpha on the BC7 texture,
-         eac_r11 and eac_r11s on the JAX bench's int16 values; each timed,
-         its peak device memory read, and 1,024 of its blocks held
-         byte-equal to the port's CPU bytes (no kernel either);
+       - ETC: nine configurations at 65,536 blocks with default Options,
+         etc1, etc1 with FakeBT709, etc2_alpha, etc2, etc2_rgba and etc2
+         with FakeBT709 on the BC7 texture, eac_r11 and eac_r11s on the
+         JAX bench's int16 values, etc2_punchthrough on the texture with
+         the JAX bench's random alpha (its share of blocks with a
+         transparent pixel recorded); each timed, its peak device memory
+         read, and 1,024 of its blocks held byte-equal to the port's CPU
+         bytes (no kernel either);
   6. ptxas's registers, stack and spills of the three redesigned BC7
      kernels, one JSON line describing every kernel (bounds from the work
      model below, at the FMA-free issue rate), the card's name and power
@@ -488,15 +499,25 @@ CPU_CHECK_BLOCKS = 1024
 
 
 def bench_rng44_draws(n_blocks=65536):
-    """The JAX bench's three draws from default_rng(44) (bench.py:203-209):
+    """The JAX bench's four draws from default_rng(44) (bench.py:203-212):
     the eac_r11 values (int16 [n, 16] in [0, 2048)), the eac_r11s values
-    (in [-1024, 1024)) and the bc4s / bc5s blocks (int8 [n, 16, 4])."""
+    (in [-1024, 1024)), the bc4s / bc5s blocks (int8 [n, 16, 4]) and the
+    etc2_punchthrough alpha (uint8 [n, 16])."""
     import numpy as np
     rng = np.random.default_rng(44)
     eac_u = rng.integers(0, 2048, size=(n_blocks, 16), dtype=np.int16)
     eac_s = rng.integers(-1024, 1024, size=(n_blocks, 16), dtype=np.int16)
     signed = rng.integers(-128, 128, size=(n_blocks, 16, 4)).astype(np.int8)
-    return eac_u, eac_s, signed
+    alpha = rng.integers(0, 256, size=(n_blocks, 16)).astype(np.uint8)
+    return eac_u, eac_s, signed, alpha
+
+
+def with_alpha(blocks, alpha):
+    """uint8 [n, 16, 4] blocks with their alpha replaced (the JAX bench's
+    punchthrough input, bench.py:211-212)."""
+    out = blocks.copy()
+    out[..., 3] = alpha
+    return out
 
 
 # the ETC full-width configurations: (name, entry point, flags added to the
@@ -507,8 +528,13 @@ ETC_CONFIGS = (
     ("etc2_alpha", "encode_etc2_alpha", 0, "texture"),        # bench.py:252
     ("eac_r11", "encode_eac11", 0, "eac_unsigned"),           # bench.py:245
     ("eac_r11s", "encode_eac11", 0, "eac_signed"),            # bench.py:246
+    ("etc2", "encode_etc2", 0, "texture"),                    # bench.py:237
+    ("etc2_rgba", "encode_etc2_rgba", 0, "texture"),          # bench.py:250
+    ("etc2_fake709", "encode_etc2", 0x400, "texture"),        # bench.py:264
+    ("etc2_punchthrough", "encode_etc2_punchthrough", 0,      # bench.py:243
+     "texture_random_alpha"),
 )
-ETC_PROFILED = ("etc1",)
+ETC_PROFILED = ("etc1", "etc2", "etc2_punchthrough")
 
 
 def etc_encoder(api, entry, blocks, options, dev, signed=False):
@@ -517,6 +543,16 @@ def etc_encoder(api, entry, blocks, options, dev, signed=False):
     if entry == "encode_eac11":
         return lambda: fn(blocks, signed, options, device=dev)
     return lambda: fn(blocks, options, device=dev)
+
+
+def etc_chunk_attr(entry):
+    """The api module's chunk size that `entry` encodes in."""
+    if entry == "encode_etc1":
+        return "CHUNK_ETC"
+    if entry in ("encode_etc2", "encode_etc2_rgba",
+                 "encode_etc2_punchthrough"):
+        return "CHUNK_ETC2"
+    return "CHUNK_EAC"
 
 
 def profile_encode(encode, out_path):
@@ -713,6 +749,9 @@ def main(argv=None):
     ap.add_argument("--chunks-eac", default="",
                     help="comma-separated CHUNK_EAC sizes at which to time "
                          "encode_etc2_alpha and encode_eac11")
+    ap.add_argument("--chunks-etc2", default="",
+                    help="comma-separated CHUNK_ETC2 sizes at which to time "
+                         "encode_etc2 and encode_etc2_punchthrough")
     ap.add_argument("--pca-chunks", default="",
                     help="comma-separated shape list lengths (at most 243) "
                          "at which to time shape_pca alone with each chunk")
@@ -720,8 +759,9 @@ def main(argv=None):
                     help="also profile one full-width encode of each path "
                          "(profile_bc7.txt, profile_bc6h.txt, "
                          "profile_bc1.txt, profile_bc3.txt, "
-                         "profile_bc1_exhaustive.txt, profile_etc1.txt in "
-                         "--out)")
+                         "profile_bc1_exhaustive.txt, profile_etc1.txt, "
+                         "profile_etc2.txt, profile_etc2_punchthrough.txt "
+                         "in --out)")
     ap.add_argument("--out", default=os.path.join(REPO, "build", "chip_smoke"),
                     help="directory for chip_smoke.json (every launch's "
                          "time and work) and the profiles")
@@ -737,7 +777,7 @@ def main(argv=None):
     import convectionkernels_tpu_torch as ckt
     from convectionkernels_tpu_torch import api, cuda_lib, exact_probe
     from convectionkernels_tpu_torch.models import (bc6h, bc6h_kernel, bc7,
-                                                    bc7_kernel)
+                                                    bc7_kernel, etc)
 
     dev = torch.device("cuda:0")
     torch.cuda.set_device(dev)
@@ -888,12 +928,13 @@ def main(argv=None):
     n_golden = 0
     for name in sorted(k[:-len("_pixels")] for k in etc_golden
                        if k.endswith("_pixels")):
-        entry = ("encode_eac11" if name.startswith("eac") else
-                 "encode_etc1" if name.startswith("etc1") else
-                 "encode_etc2_alpha")
-        got = etc_encoder(api, entry, etc_golden[f"{name}_pixels"],
-                          ckt.Options(flags=int(etc_golden[f"{name}_flags"])),
-                          dev, signed=name == "eac_r11s")()
+        entry = str(etc_golden[f"{name}_entry"])
+        got = etc_encoder(
+            api, "encode_eac11" if entry.startswith("eac11")
+            else f"encode_{entry}", etc_golden[f"{name}_pixels"],
+            ckt.Options(flags=int(etc_golden[f"{name}_flags"]),
+                        threshold=float(etc_golden[f"{name}_threshold"])),
+            dev, signed=entry == "eac11s")()
         bad_cases[name] = int(
             (got.cpu().numpy() != etc_golden[f"{name}_blocks"]).any(
                 axis=1).sum())
@@ -1048,7 +1089,7 @@ def main(argv=None):
     del out, again
 
     # 5c. the S3TC full-width runs: 65,536 blocks each, default options
-    eac_u, eac_s, signed = bench_rng44_draws(tex.shape[0])
+    eac_u, eac_s, signed, random_alpha = bench_rng44_draws(tex.shape[0])
     signed_dev = torch.as_tensor(signed, device=dev)
     rows = torch.arange(0, tex.shape[0], tex.shape[0] // CPU_CHECK_BLOCKS,
                         device=dev)
@@ -1099,7 +1140,9 @@ def main(argv=None):
     # 5d. the ETC full-width runs: 65,536 blocks each, default options
     inputs = {"texture": tex_dev,
               "eac_unsigned": torch.as_tensor(eac_u, device=dev),
-              "eac_signed": torch.as_tensor(eac_s, device=dev)}
+              "eac_signed": torch.as_tensor(eac_s, device=dev),
+              "texture_random_alpha": torch.as_tensor(
+                  with_alpha(tex, random_alpha), device=dev)}
     etc_encoders = {}
     detail["full_width_etc"] = {}
     for name, entry, extra_flags, source in ETC_CONFIGS:
@@ -1110,7 +1153,8 @@ def main(argv=None):
         etc_encoders[name] = encode_etc
         out = encode_etc()
         torch.cuda.synchronize()
-        if out.shape != (blocks.shape[0], 8) or out.dtype != torch.uint8:
+        width = 16 if entry == "encode_etc2_rgba" else 8
+        if out.shape != (blocks.shape[0], width) or out.dtype != torch.uint8:
             raise SystemExit(f"{name} returned {tuple(out.shape)} "
                              f"{out.dtype}")
         torch.cuda.reset_peak_memory_stats(dev)
@@ -1126,12 +1170,17 @@ def main(argv=None):
         ms = statistics.median(times)
         result = dict(
             config=name, blocks=blocks.shape[0],
-            chunk=(api.CHUNK_ETC if entry == "encode_etc1"
-                   else api.CHUNK_EAC),
+            chunk=getattr(api, etc_chunk_attr(entry)),
             encode_ms=times, encode_ms_median=ms,
             mtexels_per_s=blocks.shape[0] * 16 / (ms * 1e-3) / 1e6,
             peak_gib=peak_gib, cpu_blocks_compared=len(rows),
             cpu_mismatched_blocks=bad, cpu_seconds=cpu_s)
+        if entry == "encode_etc2_punchthrough":
+            # the share of blocks the split sends to the punchthrough stages
+            thr = etc.punchthrough_threshold(etc_opts.threshold)
+            result["transparent_block_share"] = float(
+                (blocks[:, :, 3].to(torch.int32) < thr).any(dim=1).float()
+                .mean())
         phase("full_width_etc", **result)
         detail["full_width_etc"][name] = result
         if bad:
@@ -1188,7 +1237,9 @@ def main(argv=None):
             ("CHUNK_ETC", args.chunks_etc, "chunk_sweep_etc",
              ("etc1", "etc1_fake709")),
             ("CHUNK_EAC", args.chunks_eac, "chunk_sweep_etc",
-             ("etc2_alpha", "eac_r11"))):
+             ("etc2_alpha", "eac_r11")),
+            ("CHUNK_ETC2", args.chunks_etc2, "chunk_sweep_etc",
+             ("etc2", "etc2_punchthrough"))):
         for name in names if option else ():
             sweep = chunk_sweep(api, attr,
                                 [int(c) for c in option.split(",")],

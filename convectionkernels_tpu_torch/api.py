@@ -1,4 +1,4 @@
-"""Public S3TC, BC7, BC6H, ETC1, ETC2 alpha and EAC11 API.
+"""Public S3TC, BC7, BC6H, ETC1, ETC2 and EAC11 API.
 
 The PyTorch counterpart of cvtt::Kernels' entry points
 (ConvectionKernels.h:236-277, ConvectionKernels_API.cpp). Every entry point
@@ -10,8 +10,8 @@ their plain PyTorch versions run.
 
 Blocks are independent, so a large batch is encoded in host-side chunks
 (CHUNK_S3TC, CHUNK_S3TC_EXHAUSTIVE, CHUNK_BC7, CHUNK_BC6H, CHUNK_ETC,
-CHUNK_EAC blocks), which bounds the device memory of the per-candidate
-tensors.
+CHUNK_ETC2, CHUNK_EAC blocks), which bounds the device memory of the
+per-candidate tensors.
 """
 
 from __future__ import annotations
@@ -51,6 +51,14 @@ CHUNK_BC6H = 65536
 CHUNK_ETC = 65536
 CHUNK_EAC = 65536
 
+# Blocks per ETC2 (RGB, RGBA, punchthrough) encode chunk. ETC2 runs ETC1's
+# differential half beside the planar, T and H searches, whose H-mode pair
+# totals are [N, 8, 33, 33] float32 (35 KB a block). On an H100 one chunk
+# of 65,536 is 12% (etc2) and 25% (punchthrough) faster than 16,384,
+# peaking at 11.8 GiB (14.2 with RGBA's alpha search, 18.0 with
+# FakeBT709); PERF.md records the sweep.
+CHUNK_ETC2 = 65536
+
 
 def resolve_device(device=None) -> torch.device:
     """`device`, or the CUDA card when None; raises when CUDA is asked for
@@ -85,19 +93,31 @@ def _cast(pixels, dtype) -> torch.Tensor:
     return t.to(dtype)
 
 
-def _as_blocks(pixels, device, dtype=torch.uint8) -> torch.Tensor:
-    """[N, 16, 4] `dtype` blocks on `device` from any [N, 16, C] array-like
-    (C >= 1). The JAX package reads channel c of its input with a static
-    index, which clamps to the last channel, so a missing channel repeats
-    the last one and channels past the fourth are not read."""
+def _static_index(t, dim: int, count: int) -> torch.Tensor:
+    """Entries 0 .. count - 1 of `t` along `dim` as the JAX package reads
+    them, with static integer indices: an index past the end clamps to the
+    last entry, and entries past `count` are not read."""
+    size = t.shape[dim]
+    if size == count:
+        return t
+    return t.index_select(dim, torch.tensor(
+        [min(i, size - 1) for i in range(count)], device=t.device))
+
+
+def _as_blocks(pixels, device, dtype=torch.uint8,
+               sixteen_pixels=True) -> torch.Tensor:
+    """[N, 16, 4] `dtype` blocks on `device` from any [N, P, C] array-like
+    (P, C >= 1) that the JAX entry point takes: [N, 16, C] where it checks
+    the shape (`sixteen_pixels`), any P where it does not (BC6H). The JAX
+    package reads pixel p and channel c with static indices, which clamp
+    to the last one, so a missing pixel or channel repeats the last one
+    and those past the 16th pixel or fourth channel are not read."""
     t = _cast(pixels, dtype)
-    if t.dim() != 3 or t.shape[1] != 16 or t.shape[2] < 1:
+    if t.dim() != 3 or t.shape[1] < 1 or t.shape[2] < 1 or (
+            sixteen_pixels and t.shape[1] != 16):
         raise ValueError(f"expected [N, 16, C] pixel blocks, got "
                          f"{tuple(t.shape)}")
-    c = t.shape[2]
-    if c != 4:
-        t = t[:, :, [min(ch, c - 1) for ch in range(4)]]
-    return t.to(device)
+    return _static_index(_static_index(t, 2, 4), 1, 16).to(device)
 
 
 def _chunked(pack_chunk, blocks, chunk: int, width: int = 16) -> torch.Tensor:
@@ -141,7 +161,7 @@ def decode_bc7(blocks, device=None) -> torch.Tensor:
 
 def _encode_bc6h(pixels, options: Options, signed: bool, device):
     dev = resolve_device(device)
-    blocks = _as_blocks(pixels, dev, torch.int16)
+    blocks = _as_blocks(pixels, dev, torch.int16, sixteen_pixels=False)
     cw = options.channel_weights()
     return _chunked(lambda b: bc6h.pack(b, options.flags, cw, signed,
                                         options.seed_points,
@@ -152,7 +172,9 @@ def _encode_bc6h(pixels, options: Options, signed: bool, device):
 def encode_bc6hu(pixels, options: Options = Options(),
                  device=None) -> torch.Tensor:
     """Kernels::EncodeBC6HU (API.cpp:56-69), unsigned HDR: int16 half-float
-    bits [N, 16, 4] (alpha ignored) -> uint8 [N, 16] on `device`."""
+    bits [N, 16, 4] (alpha ignored) -> uint8 [N, 16] on `device`. As in the
+    JAX package, [N, P, C] with P other than 16 is read with clamped pixel
+    indices."""
     return _encode_bc6h(pixels, options, False, device)
 
 
@@ -301,12 +323,65 @@ def encode_eac11(pixels, signed: bool = False, options: Options = Options(),
                  device=None) -> torch.Tensor:
     """Kernels::EncodeETC2Alpha11 (API.cpp:259-268): one 11-bit channel,
     int16 [N, 16] (clamped to [0, 2047], or [-1023, 1023] when `signed`)
-    -> uint8 [N, 8] on `device`."""
+    -> uint8 [N, 8] on `device`. As in the JAX package, [N, P] with P other
+    than 16 is read with clamped pixel indices; a rank other than 2, which
+    the JAX package encodes into an array of another shape, raises."""
     del options  # the alpha search has no option
     dev = resolve_device(device)
     values = _cast(pixels, torch.int16)
-    if values.dim() != 2 or values.shape[1] != 16:
+    if values.dim() != 2 or values.shape[1] < 1:
         raise ValueError(f"expected [N, 16] values, got "
                          f"{tuple(values.shape)}")
     return _chunked(lambda b: etc.compress_eac11(b, signed),
-                    values.to(dev), CHUNK_EAC, 8)
+                    _static_index(values, 1, 16).to(dev), CHUNK_EAC, 8)
+
+
+def encode_etc2(pixels, options: Options = Options(),
+                device=None) -> torch.Tensor:
+    """Kernels::EncodeETC2 (API.cpp:216-229): uint8 [N, 16, 4] -> uint8
+    [N, 8] on `device`."""
+    dev = resolve_device(device)
+    blocks = _as_blocks(pixels, dev)
+    return _chunked(lambda b: etc.compress_etc2(b, options, False), blocks,
+                    CHUNK_ETC2, 8)
+
+
+def encode_etc2_rgba(pixels, options: Options = Options(),
+                     device=None) -> torch.Tensor:
+    """Kernels::EncodeETC2RGBA (API.cpp:270-286): the ETC2 alpha block then
+    the ETC2 color block, uint8 [N, 16, 4] -> uint8 [N, 16] on `device`."""
+    dev = resolve_device(device)
+    blocks = _as_blocks(pixels, dev)
+    return _chunked(lambda b: torch.cat([
+        etc.compress_etc2_alpha(b), etc.compress_etc2(b, options, False)],
+        dim=-1), blocks, CHUNK_ETC2, 16)
+
+
+def encode_etc2_punchthrough(pixels, options: Options = Options(),
+                             device=None) -> torch.Tensor:
+    """Kernels::EncodeETC2PunchthroughAlpha (API.cpp:231-244): uint8
+    [N, 16, 4] -> uint8 [N, 8] on `device`; a pixel whose alpha is below
+    `options.threshold` (x 255) is transparent.
+
+    A block's bytes come either from the opaque stages (no transparent
+    pixel) or from the punchthrough stages alone (ETC.cpp:1866-1886), so
+    the blocks are split by that test, as the JAX package's host dispatch
+    splits them: blocks without a transparent pixel go through
+    compress_etc2, the others through compress_etc2_punchthrough_only,
+    each group in chunks, and the bytes are written back in input order.
+    The split reads one [N] mask on the host."""
+    dev = resolve_device(device)
+    blocks = _as_blocks(pixels, dev)
+    thr = etc.punchthrough_threshold(options.threshold)
+    any_transparent = (blocks[:, :, 3].to(torch.int32) < thr).any(
+        dim=1).cpu().numpy()
+    out = torch.empty((blocks.shape[0], 8), dtype=torch.uint8, device=dev)
+    for rows, encode in (
+            (~any_transparent, lambda b: etc.compress_etc2(b, options, False)),
+            (any_transparent,
+             lambda b: etc.compress_etc2_punchthrough_only(b, options))):
+        if rows.any():
+            rows = torch.as_tensor(np.flatnonzero(rows), device=dev)
+            out[rows] = _chunked(encode, blocks.index_select(0, rows),
+                                 CHUNK_ETC2, 8)
+    return out

@@ -1,9 +1,9 @@
-"""ETC1, ETC2 alpha and EAC11 encoders.
+"""ETC1, ETC2 (RGB, punchthrough), ETC2 alpha and EAC11 encoders.
 
-The PyTorch counterpart of the ETC1 and alpha halves of the JAX package's
-models/etc.py, itself the batched form of the reference's ETCComputer
-(ConvectionKernels_ETC.cpp). Every function works on N blocks at once on
-the blocks' device; per-lane branching is `torch.where`.
+The PyTorch counterpart of the JAX package's models/etc.py, itself the
+batched form of the reference's ETCComputer (ConvectionKernels_ETC.cpp).
+Every function works on N blocks at once on the blocks' device; per-lane
+branching is `torch.where`.
 
 - ETC1 evaluates every (table, offset) candidate of a half block as tensor
   axes: the differential and individual quantizers on the run-deduplicated
@@ -15,6 +15,9 @@ the blocks' device; per-lane branching is `torch.where`.
   re-acceptance of equal-total ties (_resolve_differential).
 - The alpha and EAC11 search is one [N, 16, 320] candidate grid (table x
   range x multiplier, pixels an axis) with a first-occurrence argmin.
+- ETC2's T and H scans put the 8 tables x 33 premultiplier offsets on one
+  table-major candidate axis beside the 16 pixels; the H pair totals are
+  one [N, 8, 33, 33] grid. The planar fit's three channels are an axis.
 
 Candidate visitation order and float32 operation order follow the JAX
 package, so the bytes equal its op-by-op bytes. A float32 sum over pixels
@@ -25,10 +28,13 @@ are int32 throughout.
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
 from ..ops import lanes
+from ..ops.exact_math import exact_divide, exact_sqrt
 from ..options import Flags, Options
 from ..tables import etc_tables
 
@@ -286,10 +292,13 @@ def _unquantize(packed, differential: bool):
 
 
 def _selector_bits(sel, px_dim):
-    """OR over the pixel axis `px_dim` (8 pixels) of sel << (2 * px)."""
+    """OR over the pixel axis `px_dim` (8 or 16 pixels) of 2-bit
+    sel << (2 * px); bit 31 wraps into the sign as the reference's uint32
+    does."""
     shape = [1] * sel.dim()
-    shape[px_dim] = 8
-    shifts = (2 * torch.arange(8, dtype=I32, device=sel.device)).view(shape)
+    shape[px_dim] = sel.shape[px_dim]
+    shifts = (2 * torch.arange(sel.shape[px_dim], dtype=I32,
+                               device=sel.device)).view(shape)
     return torch.sum(sel << shifts, dim=px_dim, dtype=I32)
 
 
@@ -641,6 +650,16 @@ def _resolve_fake_bt709_rounding(cu, differential, accurate):
             for ch in range(3)]
 
 
+def _lo_word(low_bits, high_bits):
+    """The low word of a T/H/ETC1 block: pixel PIXEL_SELECTOR_ORDER[px]'s
+    low bit at px and high bit at 16 + px. low/high: [N, 16] 0 or 1."""
+    order = _i32(PIXEL_SELECTOR_ORDER, low_bits.device)
+    bit = torch.arange(16, dtype=I32, device=low_bits.device)
+    return torch.sum((low_bits.index_select(1, order) << bit)
+                     | (high_bits.index_select(1, order) << (bit + 16)),
+                     dim=1, dtype=I32)
+
+
 def _emit_etc1(flip: int, d: int, win, n, transparent: bool):
     """EmitETC1Block (ETC.cpp:2565-2622): (hi, lo) int32 words of each
     block. `win`: per sector a dict of color, selectors and table [N]."""
@@ -661,19 +680,15 @@ def _emit_etc1(flip: int, d: int, win, n, transparent: bool):
         hi = hi | (d << 1)
     hi = hi | flip
 
-    # selectors to full-block order, remapped to MODIFIER_CODES [3, 2, 0,
-    # 1] as bit math: out_hi = ~s_hi, out_lo = ~gray(s)
+    # selectors to block order, remapped to MODIFIER_CODES [3, 2, 0, 1] as
+    # bit math: out_hi = ~s_hi, out_lo = ~gray(s)
     shifts = 2 * torch.arange(8, dtype=I32, device=hi.device)
     s = torch.cat([(win[sector]["selectors"][:, None] >> shifts) & 3
                    for sector in range(2)], dim=1)         # [N, 16]
     codes = ((((s >> 1) ^ 1) << 1) | (((s ^ (s >> 1)) & 1) ^ 1))
-    dst = np.concatenate(FLIP_TABLES[flip])
-    src = np.argsort(dst)[PIXEL_SELECTOR_ORDER]            # block order
-    ordered = codes.index_select(1, _i32(src, hi.device))
-    bit = torch.arange(16, dtype=I32, device=hi.device)
-    lo = torch.sum(((ordered & 1) << bit) | (((ordered >> 1) & 1)
-                                             << (bit + 16)), dim=1, dtype=I32)
-    return hi, lo
+    codes = codes.index_select(1, _i32(np.argsort(np.concatenate(
+        FLIP_TABLES[flip])), hi.device))
+    return hi, _lo_word(codes & 1, (codes >> 1) & 1)
 
 
 def compress_etc1(pixels_u8, options: Options):
@@ -811,3 +826,769 @@ def _compress_alpha_internal(pixels, is_11bit: bool, is_signed: bool):
     cols = [best_base & 0xFF, (best_mult << 4) | best_table]
     cols += [((stream >> (40 - 8 * k)) & 0xFF).to(I32) for k in range(6)]
     return torch.stack(cols, dim=-1).to(torch.uint8)
+
+
+# --- ETC2: T, H and planar modes ---------------------------------------------
+
+INT32_MIN = -2147483648
+TH_MODS = np.asarray(etc_tables.TH_MODIFIER_TABLE, dtype=np.int32)
+TH_OFFSETS = 33          # premultiplier offsets -16..16 of the T and H scans
+VIRTUAL_T_STEPS = 16     # premultiplier steps of the virtual T scan
+PUNCHTHROUGH_MODIFIERS = np.array([8, 17, 29, 42, 60, 80, 106, 183],
+                                  dtype=np.int32)
+
+
+def _chain_sum(x, dim: int):
+    """The float32 sum over `dim` as a chain of adds in index order, the
+    reference's loop order (torch.sum would reassociate it)."""
+    total = x.select(dim, 0).clone()
+    for i in range(1, x.shape[dim]):
+        total.add_(x.select(dim, i))
+    return total
+
+
+def _without_fake_bt709(pixels, pw, options: Options):
+    """The options and preweighted pixels of the errors that use
+    Uniform/Weighted even under FakeBT709 (EncodeTMode's line colors,
+    ETC.cpp:607-612, and the virtual T mode's line and H colors): the
+    weighted error then compares weighted RGB against YUV-preweighted
+    pixels, as the reference does; the uniform one takes the pixels."""
+    opts = dataclasses.replace(
+        options, flags=options.flags & ~Flags.ETC_USE_FAKE_BT709)
+    if opts.flags & Flags.UNIFORM:
+        return opts, lanes.to_float(pixels)
+    return opts, pw
+
+
+def _unpack_selectors(selectors):
+    """[N] words of 16 2-bit selectors -> [N, 16] int32 in pixel order."""
+    shifts = 2 * torch.arange(16, dtype=I32, device=selectors.device)
+    return (selectors[:, None] >> shifts) & 3
+
+
+def _pixel_bits(bits, px_dim: int = 1):
+    """OR over the 16-pixel axis of bits << px (bits 0 or 1)."""
+    shape = [1] * bits.dim()
+    shape[px_dim] = 16
+    shifts = torch.arange(16, dtype=I32, device=bits.device).view(shape)
+    return torch.sum(bits.to(I32) << shifts, dim=px_dim, dtype=I32)
+
+
+def _emit_tmode(line_color, isolated_color, selectors, table, opaque: bool):
+    """EmitTModeBlock (ETC.cpp:2414-2460): (hi, lo) words. line_color and
+    isolated_color: [N, 3] 4-bit channels (the H-mode fallback passes
+    5-bit ones, as the reference does); selectors: [N] 2-bit words."""
+    rh = (isolated_color[:, 0] >> 2) & 3
+    rl = isolated_color[:, 0] & 3
+    zero = torch.zeros_like(rh)
+    hi = torch.where((rh + rl) < 4, zero | (1 << 26), zero | -536870912)
+    hi = hi | (rh << 27) | (rl << 24) | (isolated_color[:, 1] << 20) \
+        | (isolated_color[:, 2] << 16) | (line_color[:, 0] << 12) \
+        | (line_color[:, 1] << 8) | (line_color[:, 2] << 4) \
+        | (((table >> 1) & 3) << 2) | (table & 1)
+    if opaque:
+        hi = hi | 2
+    sel = _unpack_selectors(selectors)
+    return hi, _lo_word(sel & 1, (sel >> 1) & 1)
+
+
+def _emit_hmode(block_colors, sector_bits, sign_bits, table, opaque: bool):
+    """EmitHModeBlock (ETC.cpp:2462-2563), with its T-mode fallback for
+    equal colors and its swap to encode the table's low bit.
+    block_colors: [N, 2] packed 4-bit colors, red high."""
+    c0, c1 = block_colors[:, 0], block_colors[:, 1]
+    px_bits = torch.arange(16, dtype=I32, device=c0.device)
+
+    # T-mode fallback for equal colors
+    t_line = (c0[:, None] >> _i32([10, 5, 0], c0.device)) & 0x1F
+    t_sel = _selector_bits(((sign_bits[:, None] >> px_bits) & 1) << 1,
+                           1) | 0x55555555
+    t_hi, t_lo = _emit_tmode(t_line, t_line, t_sel, table, opaque)
+
+    swap = ((table & 1) == 1) != (c0 > c1)
+    first = torch.where(swap, c1, c0)
+    second = torch.where(swap, c0, c1)
+    sector_bits = torch.where(swap, sector_bits ^ 0xFFFF, sector_bits)
+    r1 = (first >> 10) & 15
+    g1 = (first >> 5) & 15
+    b1 = first & 15
+    g1a, g1b = g1 >> 1, g1 & 1
+    b1a, b1b = b1 >> 3, b1 & 7
+
+    zero = torch.zeros_like(c0)
+    hi = torch.where(((g1a & 4) != 0) & (r1 + g1a < 8), zero | INT32_MIN,
+                     zero)
+    fake_dg = b1b >> 1
+    fake_g = b1a | (g1b << 1)
+    hi = torch.where(fake_g + fake_dg < 4, hi | (1 << 18), hi | (7 << 21))
+    hi = hi | (r1 << 27) | (g1a << 24) | (g1b << 20) | (b1a << 19) \
+        | (b1b << 15) | (((second >> 10) & 15) << 11) \
+        | (((second >> 5) & 15) << 7) | ((second & 15) << 3) \
+        | (((table >> 2) & 1) << 2) | ((table >> 1) & 1)
+    if opaque:
+        hi = hi | 2
+    lo = _lo_word((sign_bits[:, None] >> px_bits) & 1,
+                  (sector_bits[:, None] >> px_bits) & 1)
+    return torch.where(c0 == c1, t_hi, hi), torch.where(c0 == c1, t_lo, lo)
+
+
+def _decode_planar_coeff(coeff, ch_dim: int = 1):
+    """DecodePlanarCoeff (ETC.cpp:1266-1272) of [N, 3, ...] coefficients,
+    channels on `ch_dim`: green has 7 bits, red and blue 6."""
+    shape = [1] * coeff.dim()
+    shape[ch_dim] = 3
+    left = _i32([2, 1, 2], coeff.device).view(shape)
+    right = _i32([4, 6, 4], coeff.device).view(shape)
+    return (coeff << left) | (coeff >> right)
+
+
+def _emit_planar(best_coeffs):
+    """Planar block emission (ETC.cpp:1590-1660): (hi, lo) words from
+    [N, 3 (channel), 3 (o, h, v)] coefficients."""
+    (ro, rh, rv), (go, gh, gv), (bo, bh, bv) = (
+        best_coeffs[:, ch].unbind(1) for ch in range(3))
+    go1, go2 = go >> 6, go & 63
+    bo1, bo2, bo3 = bo >> 5, (bo >> 3) & 3, bo & 7
+    fake_r, fake_dr = ro >> 2, go1 | ((ro & 3) << 1)
+    fake_g, fake_dg = go2 >> 2, ((go2 & 3) << 1) | bo1
+    fake_b, fake_db = bo2, bo3 >> 1
+
+    zero = torch.zeros_like(ro)
+    hi = torch.where(((fake_dr & 4) != 0) & (fake_r + fake_dr < 8),
+                     zero | INT32_MIN, zero)
+    hi = torch.where(((fake_dg & 4) != 0) & (fake_g + fake_dg < 8),
+                     hi | (1 << 23), hi)
+    hi = torch.where(fake_b + fake_db < 4, hi | (1 << 10), hi | (7 << 13))
+    hi = hi | (ro << 25) | (go1 << 24) | (go2 << 17) | (bo1 << 16) \
+        | (bo2 << 11) | (bo3 << 7) | ((rh >> 1) << 2) | 2 | (rh & 1)
+    lo = (gh << 25) | (bh << 19) | (rv << 13) | (gv << 6) | bv
+    return hi, lo
+
+
+def _planar_normal_terms():
+    """The host-side float32 terms of the planar least-squares system
+    (ETC.cpp:1300-1365), which depend on pixel coordinates only. The
+    reference accumulates fho/fhv/fov twice per pixel through the aliased
+    references foh/fvh/fvo (`float &foh = fho;`, ETC.cpp:1305-1327)."""
+    f = np.float32
+    fhh = fho = fhv = foo = fov = fvv = f(0)
+    for px in range(16):
+        x, y = f(px % 4), f(px // 4)
+        fhh = f(fhh + x * x)
+        fhv = f(f(fhv + x * y) + y * x)
+        fho = f(f(fho + x) + x)
+        fvv = f(fvv + y * y)
+        fov = f(f(fov + y) + y)
+        foo = f(foo + 1)
+    d, e, ff = f(2.0) * fhh, fho, fhv
+    i, j, k = fhv, fov, f(2.0) * fvv
+    m, nn, p = fho, f(2.0) * foo, fov
+    r0to1 = f(-i / d)
+    r0to2 = f(-m / d)
+    j1 = f(j + r0to1 * e)
+    k1 = f(k + r0to1 * ff)
+    n1 = f(nn + r0to2 * e)
+    p1 = f(p + r0to2 * ff)
+    r1to2 = f(-p1 / k1)
+    n2 = f(n1 + r1to2 * j1)
+    r2to1 = f(-j1 / n2)
+    elim2 = f(-ff / k1)
+    elim1 = f(-e / n2)
+    return dict(d=d, k1=k1, n2=n2, r0to1=r0to1, r0to2=r0to2, r1to2=r1to2,
+                r2to1=r2to1, elim2=elim2, elim1=elim1)
+
+
+_PLANAR_X = np.arange(16, dtype=np.int32) % 4
+_PLANAR_Y = np.arange(16, dtype=np.int32) // 4
+
+
+def _planar_decode(best_coeffs):
+    """The decoded 8-bit plane [N, 3, ..., 16] of [N, 3, ..., 3 (o, h, v)]
+    coefficients (channels on dim 1)."""
+    dec = _decode_planar_coeff(best_coeffs)
+    d_o, d_h, d_v = dec[..., 0:1], dec[..., 1:2], dec[..., 2:3]
+    x = _i32(_PLANAR_X, dec.device)
+    y = _i32(_PLANAR_Y, dec.device)
+    interp = (x * (d_h - d_o) + y * (d_v - d_o) + ((d_o << 2) + 2)) >> 2
+    return torch.clamp(interp, 0, 255)
+
+
+def encode_planar(stage: StageBest, rank_base: int, pixels, pw,
+                  options: Options):
+    """EncodePlanar (ETC.cpp:1274-1663): the algebraic least-squares plane
+    fit, its coefficients rounded (down and up, the 2 x 2 x 2 search per
+    channel, or to nearest under FakeBT709). The three channels are one
+    tensor axis."""
+    n, dev = pixels.shape[0], pixels.device
+    fake = bool(options.flags & Flags.ETC_USE_FAKE_BT709)
+    t = _planar_normal_terms()
+
+    # fh, fv, fo per channel: the reference subtracts c*x, c*y and c twice
+    # per pixel (ETC.cpp:1330-1343), each a chain in pixel order
+    src = pw if fake else lanes.to_float(pixels)           # [N, 16, 3]
+    xy1 = torch.tensor(np.stack([_PLANAR_X, _PLANAR_Y, np.ones(16)], 1),
+                       dtype=F32, device=dev)              # [16, 3]
+    acc = torch.zeros((n, 3, 3), dtype=F32, device=dev)    # [N, ch, (h,v,o)]
+    for px in range(16):
+        c = src[:, px, :, None] * xy1[px]
+        acc = (acc - c) - c
+    g_d, l_d, q_d = acc.unbind(2)
+
+    def full(v):
+        return torch.full((n, 3), float(v), dtype=F32, device=dev)
+
+    l1_d = l_d + g_d * float(t["r0to1"])
+    q1_d = q_d + g_d * float(t["r0to2"])
+    q2_d = q1_d + l1_d * float(t["r1to2"])
+    o = exact_divide(-q2_d, full(t["n2"]))
+    l2_d = l1_d + q2_d * float(t["r2to1"])
+    g2_d = g_d + l2_d * float(t["elim2"]) + q2_d * float(t["elim1"])
+    h = exact_divide(-g2_d, full(t["d"])) * 4.0 + o
+    v = exact_divide(-l2_d, full(t["k1"])) * 4.0 + o
+    fco = torch.stack([o, h, v], 2)                        # [N, ch, (o,h,v)]
+    if fake:
+        fco = convert_from_fake_bt709(fco)
+    # 127/255 and 63/255 are doubles rounded once to float32
+    scale = torch.tensor(np.float32([63.0 / 255.0, 127.0 / 255.0,
+                                     63.0 / 255.0]), device=dev)[:, None]
+    cap = torch.tensor(np.float32([63.0, 127.0, 63.0]), device=dev)[:, None]
+    coeff = torch.minimum(cap, torch.clamp_min(fco, 0.0) * scale)
+
+    if fake:
+        best_coeffs = lanes.round_and_convert_to_int_nearest(coeff)
+        recon = _planar_decode(best_coeffs)                # [N, 3, 16]
+        total_error = _chain_sum(compute_error(
+            recon, pw.transpose(1, 2), options), 1)
+    else:
+        # the 8 (o, h, v) roundings in (io, ih, iv) order, k = 4 io + 2 ih
+        # + iv; a strict-less update from FLT_MAX is a first argmin
+        ranges = torch.stack([lanes.round_down_to_int(coeff),
+                              lanes.round_up_to_int(coeff)], 3)
+        bit = ((torch.arange(8, dtype=I32, device=dev)[:, None]
+                >> _i32([2, 1, 0], dev)) & 1)              # [8, 3]
+        cand = torch.gather(
+            ranges[:, :, None].expand(n, 3, 8, 3, 2), 4,
+            bit.long()[None, None, :, :, None].expand(n, 3, 8, 3, 1)
+        ).squeeze(4)                                       # [N, 3, 8, 3]
+        delta = lanes.to_float(pixels.transpose(1, 2)[:, :, None, :]
+                               - _planar_decode(cand))     # [N, 3, 8, 16]
+        err = _chain_sum(delta * delta, 3)                 # [N, 3, 8]
+        win = lanes.first_argmin(err, 2)                   # [N, 3]
+        best_err = torch.amin(err, dim=2)
+        best_coeffs = torch.gather(
+            cand, 2, win.long()[:, :, None, None].expand(n, 3, 1, 3)
+        ).squeeze(2)
+        if not options.flags & Flags.UNIFORM:
+            w = _weights(options)
+            best_err = best_err * torch.tensor(
+                [w[ch] * w[ch] for ch in range(3)], dtype=F32, device=dev)
+        total_error = (best_err[:, 0] + best_err[:, 1]) + best_err[:, 2]
+
+    hi, lo = _emit_planar(best_coeffs)
+    stage.update(total_error, rank_base, hi, lo)
+
+
+def _resolve_th_fake_bt709(quantized, targets, granularity):
+    """ResolveTHFakeBT709Rounding (ETC.cpp:2286-2327): quantized and
+    targets int32 [N, 3, ...] (channels on dim 1), granularity int32
+    broadcasting against them. The 8 octants are a tensor axis; the
+    reference's strict-less octant scan is a first argmin over it."""
+    unq = (quantized << 4) | quantized
+    unq_next = torch.clamp_max(unq + 17, 255)
+    low = lanes.to_float((unq * granularity) << 1).unsqueeze(2)
+    high = lanes.to_float((unq_next * granularity) << 1).unsqueeze(2)
+    octant_bits = (torch.arange(8, dtype=I32, device=unq.device)[None, :]
+                   >> _i32([0, 1, 2], unq.device)[:, None]) & 1  # [3, 8]
+    octant_bits = octant_bits.view([1, 3, 8] + [1] * (unq.dim() - 2))
+    yuv = convert_to_fake_bt709(torch.where(octant_bits == 1, high, low))
+    d = yuv - convert_to_fake_bt709(lanes.to_float(targets)).unsqueeze(2)
+    # the reference's error expression, d1 + d1 (not d1 * d1) included
+    # (ETC.cpp:2318)
+    err = d[:, 0] * d[:, 0] + d[:, 1] + d[:, 1] + d[:, 2] * d[:, 2]
+    octant = lanes.first_argmin(err, 1).unsqueeze(1)
+    return quantized + ((octant >> _channel_view(
+        _i32([0, 1, 2], unq.device), unq.dim())) & 1)
+
+
+def _th_totals(groups, pixels):
+    """Channel sums [N, 3] of the pixels in `groups` [N, 16] and the
+    count of those pixels [N]."""
+    total = torch.sum(torch.where(groups[:, :, None], pixels, 0), dim=1,
+                      dtype=I32)
+    return total, torch.sum(groups, dim=1, dtype=I32)
+
+
+def encode_tmode(stage: StageBest, rank_base: int, is_isolated, pixels, pw,
+                 options: Options):
+    """EncodeTMode (ETC.cpp:396-648). is_isolated: [N, 16] bool.
+
+    The 8 modifier tables x 33 premultiplier offsets are one table-major
+    candidate axis (K = 264), the 16 pixels another; the reference's
+    (table, offset) first-wins order is the first argmin over K."""
+    n, dev = pixels.shape[0], pixels.device
+    fake = bool(options.flags & Flags.ETC_USE_FAKE_BT709)
+    pw_t = pw.transpose(1, 2)                              # [N, 3, 16]
+
+    iso_total, num_iso = _th_totals(is_isolated, pixels)
+    line_total = torch.sum(pixels, dim=1, dtype=I32) - iso_total
+    num_line = 16 - num_iso
+
+    numerator = iso_total + iso_total
+    if not fake:
+        numerator = numerator + ((num_iso << 4) | num_iso)[:, None]
+    iso_q = lanes.div_floor(numerator, (num_iso * 34)[:, None])  # [N, 3]
+    if fake:
+        iso_q = _resolve_th_fake_bt709(iso_q, numerator, num_iso[:, None])
+    iso_error = compute_error((iso_q | (iso_q << 4))[:, :, None], pw_t,
+                              options)                     # [N, 16]
+
+    # line-color candidates: the premultiplier in [-16, 16], clamped per
+    # lane to +-num_line (clamp duplicates carry identical payloads)
+    offs = torch.arange(-16, 17, dtype=I32, device=dev)
+    clamped = torch.maximum(-num_line[:, None],
+                            torch.minimum(num_line[:, None], offs))
+    mods = _i32(TH_MODS, dev)
+    mod_addend = (clamped[:, None, :] * (2 * mods)[None, :, None]).reshape(
+        n, 8 * TH_OFFSETS)
+    base = line_total + line_total
+    if not fake:
+        base = base + ((num_line << 4) | num_line)[:, None]
+    numer = torch.clamp_min(base[:, :, None] + mod_addend[:, None, :], 0)
+    q = torch.clamp_max(lanes.div_floor(
+        numer, (num_line * 34)[:, None, None]), 15)        # [N, 3, K]
+    if fake:
+        q = torch.clamp_max(_resolve_th_fake_bt709(
+            q, numer, num_line[:, None, None]), 15)
+    packed = q[:, 0] | (q[:, 1] << 5) | (q[:, 2] << 10)    # red low
+
+    unq = (q << 4) | q
+    mod_k = _i32(np.repeat(TH_MODS, TH_OFFSETS), dev)
+    opts_nf, pw_nf = _without_fake_bt709(pixels, pw, options)
+    pw_nf = pw_nf.transpose(1, 2)[:, :, :, None]           # [N, 3, 16, 1]
+    px_err = iso_error[:, :, None].expand(n, 16, 8 * TH_OFFSETS)
+    px_sel = torch.zeros((n, 16, 8 * TH_OFFSETS), dtype=I32, device=dev)
+    for i, line in enumerate((torch.clamp_max(unq + mod_k, 255), unq,
+                              torch.clamp_min(unq - mod_k, 0))):
+        e = error_from_terms(recon_terms(line, opts_nf)[:, :, None, :],
+                             pw_nf)                        # [N, 16, K]
+        px_sel = torch.where(e < px_err, i + 1, px_sel)
+        px_err = torch.minimum(e, px_err)
+        del e
+    error = _chain_sum(px_err, 1)                          # [N, K]
+    selectors = _selector_bits(px_sel, 1)
+    del px_err, px_sel
+
+    win_err, win = lanes.lex_min_with_index(error, (1,))
+    line_color = (lanes.take_winner(packed, win)[:, None]
+                  >> _i32([0, 5, 10], dev)) & 15
+    hi, lo = _emit_tmode(line_color, iso_q, lanes.take_winner(selectors, win),
+                         win // TH_OFFSETS, True)
+    stage.update(win_err, rank_base, hi, lo)
+
+
+def _table_rank(colors):
+    """Unique-color rank of each candidate within its table (the reference
+    dedups consecutive candidates per table): colors [..., 8, 33]."""
+    prev = torch.cat([torch.full_like(colors[..., :1], -1),
+                      colors[..., :-1]], dim=-1)
+    return torch.cumsum((colors != prev).to(I32), dim=-1, dtype=I32) - 1
+
+
+def encode_hmode(stage: StageBest, rank_base: int, groupings, pixels, pw,
+                 options: Options):
+    """EncodeHMode (ETC.cpp:649-886). groupings: [N, 16] bool, True for
+    sector 1.
+
+    Each sector's 8 x 33 candidate colors carry a per-pixel best error
+    over the modifier's two signs; the (table, i1, i0) pair totals are one
+    [N, 8, 33, 33] grid chained over the 16 pixels in pixel order, whose
+    flat first argmin is the reference's strict-improvement combo walk
+    (ETC.cpp:797-815). The winner's sector and sign bits are recomputed
+    from the winning pair's colors on [N, 16]."""
+    n, dev = pixels.shape[0], pixels.device
+    pw_t = pw.transpose(1, 2)                              # [N, 3, 16]
+    total1, count1 = _th_totals(groupings, pixels)
+    totals = torch.stack([torch.sum(pixels, dim=1, dtype=I32) - total1,
+                          total1], 1)                      # [N, 2, 3]
+    counts = torch.stack([16 - count1, count1], 1)         # [N, 2]
+
+    offs = torch.arange(-16, 17, dtype=I32, device=dev)
+    clamped = torch.maximum(-counts[:, :, None],
+                            torch.minimum(counts[:, :, None], offs))
+    mods = _i32(TH_MODS, dev)
+    mod_addend = (clamped[:, :, None, :]
+                  * (2 * mods)[None, None, :, None]).reshape(n, 2, 1, -1)
+    numer = torch.clamp_min((totals * 2 + counts[:, :, None] * 17)[..., None]
+                            + mod_addend, 0)               # [N, 2, 3, K]
+    q = torch.clamp_max(lanes.div_floor(
+        numer, (counts * 34)[:, :, None, None]), 15)
+    colors = (q[:, :, 0] << 10) | (q[:, :, 1] << 5) | q[:, :, 2]  # red high
+
+    unq = (q << 4) | q
+    mod_k = _i32(np.repeat(TH_MODS, TH_OFFSETS), dev)
+    errs = []
+    for sector in range(2):
+        e_plus = error_from_terms(recon_terms(
+            torch.clamp_max(unq[:, sector] + mod_k, 255), options)[
+                :, :, None, :], pw_t[:, :, :, None])       # [N, 16, K]
+        e_minus = error_from_terms(recon_terms(
+            torch.clamp_min(unq[:, sector] - mod_k, 0), options)[
+                :, :, None, :], pw_t[:, :, :, None])
+        errs.append(torch.minimum(e_plus, e_minus).view(
+            n, 16, 8, TH_OFFSETS))
+        del e_plus, e_minus
+    e0, e1 = errs
+
+    # pair totals [N, 8, 33 (i1), 33 (i0)], chained over the pixels
+    total = torch.minimum(e1[:, 0, :, :, None], e0[:, 0, :, None, :])
+    step = torch.empty_like(total)
+    for px in range(1, 16):
+        torch.minimum(e1[:, px, :, :, None], e0[:, px, :, None, :], out=step)
+        total.add_(step)
+    del step, errs, e0, e1
+
+    # the reference's combo walk pre-increments index0, so the (0, 0) pair
+    # is reached only by wrapping, which happens iff sector 1 has exactly
+    # one unique color
+    u0 = _table_rank(colors[:, 0].view(n, 8, TH_OFFSETS))
+    u1 = _table_rank(colors[:, 1].view(n, 8, TH_OFFSETS))
+    nu1 = torch.amax(u1, dim=2) + 1
+    total.masked_fill_((u0[:, :, None, :] == 0) & (u1[:, :, :, None] == 0)
+                       & (nu1[:, :, None, None] > 1), INF)
+    err, win = lanes.lex_min_with_index(total, (1, 2, 3))
+    del total
+    table = win // (TH_OFFSETS * TH_OFFSETS)
+    rem = win % (TH_OFFSETS * TH_OFFSETS)
+    color0 = lanes.take_winner(colors[:, 0], table * TH_OFFSETS
+                               + rem % TH_OFFSETS)
+    color1 = lanes.take_winner(colors[:, 1], table * TH_OFFSETS
+                               + rem // TH_OFFSETS)
+
+    # the winner's per-pixel decisions, recomputed on [N, 16]
+    modifier = mods[table.long()][:, None, None]
+
+    def lane_errors(packed):
+        u = (packed[:, None] >> _i32([10, 5, 0], dev)) & 15
+        u = ((u << 4) | u)[:, :, None]                     # [N, 3, 1]
+        e_plus = compute_error(torch.clamp_max(u + modifier, 255), pw_t,
+                               options)
+        e_minus = compute_error(torch.clamp_min(u - modifier, 0), pw_t,
+                                options)
+        return torch.minimum(e_plus, e_minus), e_minus < e_plus
+
+    e0p, s0 = lane_errors(color0)
+    e1p, s1 = lane_errors(color1)
+    pick1 = e1p < e0p
+    hi, lo = _emit_hmode(torch.stack([color0, color1], 1), _pixel_bits(pick1),
+                         _pixel_bits(torch.where(pick1, s1, s0)), table, True)
+    stage.update(err, rank_base, hi, lo, valid=torch.isfinite(err))
+
+
+def chroma_side_axes(options: Options):
+    """ETC2CompressionDataInternal ctor (ETC.cpp:3117-3145): the weighted
+    chroma axes, host-side float32 math."""
+    f = np.float32
+    cd = [f(options.red_weight), f(options.green_weight),
+          f(options.blue_weight)]
+    rot = [cd[1], cd[2], cd[0]]
+    offs = f(-(rot[0] * cd[0] + rot[1] * cd[1] + rot[2] * cd[2])
+             / (cd[0] * cd[0] + cd[1] * cd[1] + cd[2] * cd[2]))
+    a0 = [f(rot[i] + cd[i] * offs) for i in range(3)]
+    a1u = [f(a0[1] * cd[2] - a0[2] * cd[1]),
+           f(a0[2] * cd[0] - a0[0] * cd[2]),
+           f(a0[0] * cd[1] - a0[1] * cd[0])]
+    l0 = f(a0[0] * a0[0] + a0[1] * a0[1] + a0[2] * a0[2])
+    l1 = f(a1u[0] * a1u[0] + a1u[1] * a1u[1] + a1u[2] * a1u[2])
+    ratio = f(np.sqrt(np.float64(l0 / l1)))  # std::sqrt on float promotes
+    ratio = f(np.float32(np.sqrt(f(l0 / l1))))
+    a1 = [f(a1u[i] * ratio) for i in range(3)]
+    return a0, a1
+
+
+def _sector_assignments(pixels, pw, options: Options, num_opaque=None):
+    """The chroma split of CompressETC2Block (ETC.cpp:1723-1848): [N, 16]
+    bool sector of each pixel. num_opaque: [N] int32 opaque pixel counts
+    on the punchthrough path (the centered chroma is scaled by it), None
+    on the opaque path (scaled by 16)."""
+    if options.flags & Flags.UNIFORM:
+        p0, p1, p2 = pixels.unbind(2)
+        cc3 = torch.stack([p0 - p2, p0 - (p1 << 1) + p2], 2)  # [N, 16, 2]
+        centroid = torch.sum(cc3, dim=1, dtype=I32)[:, None]
+        if num_opaque is not None:
+            chroma = lanes.to_float(cc3 * num_opaque[:, None, None] - centroid)
+        else:
+            chroma = lanes.to_float((cc3 << 4) - centroid)
+        rcp_sqrt3 = _f32(0.57735026918962576450914878050196)
+        chroma = torch.stack([chroma[..., 0], chroma[..., 1] * rcp_sqrt3], 2)
+    else:
+        axes = torch.tensor(np.float32(chroma_side_axes(options)),
+                            device=pw.device)              # [2, 3]
+        t = pw[:, :, None, :] * axes                       # [N, 16, 2, 3]
+        cc3 = (t[..., 0] + t[..., 1]) + t[..., 2]          # [N, 16, 2]
+        centroid = _chain_sum(cc3, 1)[:, None]
+        if num_opaque is not None:
+            scale = lanes.to_float(num_opaque)[:, None, None]
+        else:
+            scale = 16.0
+        chroma = cc3 * scale - centroid
+
+    nx, ny = chroma[..., 0], chroma[..., 1]
+    cov_xx, cov_yy, cov_xy = _chain_sum(
+        torch.stack([nx * nx, ny * ny, nx * ny], 2), 1).unbind(1)
+    half_trace = (cov_xx + cov_yy) * 0.5
+    det = cov_xx * cov_yy - cov_xy * cov_xy
+    mm = exact_sqrt(torch.clamp_min(half_trace * half_trace - det, 0.0))
+    ev = half_trace + mm
+    dx = cov_yy - ev + cov_xy
+    dy = -(cov_xx - ev + cov_xy)
+    dx = torch.where((dx == 0.0) & (dy == 0.0), torch.ones_like(dx), dx)
+    return (nx * dx[:, None] + ny * dy[:, None]) < 0.0
+
+
+# --- ETC2 top-level encoders ------------------------------------------------
+
+def punchthrough_threshold(threshold: float) -> int:
+    """The alpha below which a pixel is transparent (ETC.cpp:1690-1700),
+    with the reference's float arithmetic."""
+    f_thr = max(min(1.0, threshold), 0.0) * 255.0
+    return int(np.floor(np.float32(f_thr) + 1.0))
+
+
+def _zero_transparent(pixels_u8, pixels, pw, options: Options):
+    """(is_transparent [N, 16], pixels and pw with transparent pixels
+    zeroed (ETC.cpp:1705-1717), opaque pixel counts [N])."""
+    transparent = (pixels_u8[:, :, 3].to(I32)
+                   < punchthrough_threshold(options.threshold))
+    pixels = torch.where(transparent[:, :, None], 0, pixels)
+    pw = torch.where(transparent[:, :, None], 0.0, pw)
+    return (transparent, pixels, pw,
+            16 - torch.sum(transparent, dim=1, dtype=I32))
+
+
+def _punchthrough_stages(stage: StageBest, sectors, pixels, pw, transparent,
+                         options: Options):
+    """The punchthrough stages of CompressETC2Block (ETC.cpp:1866-1886):
+    the virtual T mode on both sector splits, then punchthrough ETC1, at
+    ranks 10, 11 and 12 and up."""
+    encode_virtual_tmode_punchthrough(stage, 10, sectors, pixels, pw,
+                                      transparent, options)
+    encode_virtual_tmode_punchthrough(stage, 11, ~sectors, pixels, pw,
+                                      transparent, options)
+    compress_etc1_punchthrough(stage, 12, pixels, pw, transparent, options)
+
+
+def compress_etc2(pixels_u8, options: Options, punchthrough_alpha: bool):
+    """CompressETC2Block (ETC.cpp:1664-1887): uint8 [N, 16, 4] -> [N, 8].
+
+    Stage ranks: 0 planar, 1 T, 2 T flipped, 3 H flipped, 4 and up ETC1
+    (differential only); with punchthrough_alpha, the lanes that hold a
+    transparent pixel restart and keep only the punchthrough stages."""
+    pixels, pw = extract_blocks(pixels_u8, options)
+    n, dev = pixels.shape[0], pixels.device
+    num_opaque = None
+    if punchthrough_alpha:
+        transparent, pixels, pw, num_opaque = _zero_transparent(
+            pixels_u8, pixels, pw, options)
+
+    stage = StageBest(n, dev)
+    encode_planar(stage, 0, pixels, pw, options)
+    sectors = _sector_assignments(pixels, pw, options, num_opaque)
+    encode_tmode(stage, 1, sectors, pixels, pw, options)
+    encode_tmode(stage, 2, ~sectors, pixels, pw, options)
+    encode_hmode(stage, 3, ~sectors, pixels, pw, options)
+    compress_etc1_internal(stage, 4, pixels, pw, options,
+                           punchthrough_min_d=True)
+
+    if punchthrough_alpha:
+        any_transparent = transparent.any(dim=1)
+        stage.reset_where(any_transparent)
+        stage.lane_mask = any_transparent
+        _punchthrough_stages(stage, sectors, pixels, pw, transparent, options)
+    return stage.to_bytes()
+
+
+def compress_etc2_punchthrough_only(pixels_u8, options: Options):
+    """CompressETC2Block with punchthrough alpha for blocks that hold a
+    transparent pixel: for them the reference discards every opaque
+    stage's result (bestError is reset to FLT_MAX, ETC.cpp:1874) and the
+    punchthrough stages always give a finite error, so these stages alone
+    give its bytes. A block without a transparent pixel gets valid but
+    meaningless bytes; api.encode_etc2_punchthrough routes such blocks to
+    compress_etc2 instead."""
+    pixels, pw = extract_blocks(pixels_u8, options)
+    transparent, pixels, pw, num_opaque = _zero_transparent(
+        pixels_u8, pixels, pw, options)
+    stage = StageBest(pixels.shape[0], pixels.device)
+    sectors = _sector_assignments(pixels, pw, options, num_opaque)
+    _punchthrough_stages(stage, sectors, pixels, pw, transparent, options)
+    return stage.to_bytes()
+
+
+def encode_virtual_tmode_punchthrough(stage: StageBest, rank_base: int,
+                                      is_isolated_base, pixels, pw,
+                                      transparent, options: Options):
+    """EncodeVirtualTModePunchthrough (ETC.cpp:888-1264).
+
+    The 8 tables x 16 premultiplier steps are one table-major candidate
+    axis (K = 128). The reference scans 17 steps (ETC.cpp:1015), but step
+    16 clamps to step 15's +L candidate on every lane with at most 15
+    line pixels, which is every lane with a transparent pixel; the result
+    is kept only on such lanes (compress_etc2's lane mask, or the
+    dispatch's routing)."""
+    n, dev = pixels.shape[0], pixels.device
+    fake = bool(options.flags & Flags.ETC_USE_FAKE_BT709)
+    pw_t = pw.transpose(1, 2)                              # [N, 3, 16]
+    opaque = ~transparent
+
+    iso_total, num_iso = _th_totals(is_isolated_base & opaque, pixels)
+    line_total, num_line = _th_totals(~is_isolated_base & opaque, pixels)
+    addend = (num_iso << 4) | num_iso
+    numerator = iso_total + iso_total
+    if not fake:
+        numerator = numerator + addend[:, None]
+    iso_q = lanes.div_floor(numerator, (num_iso * 34)[:, None])
+    if fake:
+        iso_q = _resolve_th_fake_bt709(iso_q, numerator, num_iso[:, None])
+
+    # H-mode isolated colors of the 8 tables: [N, 3, 8]
+    mods = _i32(TH_MODS, dev)
+    off_total = iso_total[:, :, None] + mods * num_iso[:, None, None]
+    h_iso_q = torch.clamp_max(lanes.div_floor(
+        off_total + off_total + addend[:, None, None],
+        (num_iso * 34)[:, None, None]), 15)
+
+    iso_error = torch.where(transparent, 0.0, compute_error(
+        (iso_q | (iso_q << 4))[:, :, None], pw_t, options))  # [N, 16]
+
+    # the premultiplier scan -L..L step 2 per lane (ETC.cpp:1015-1044),
+    # steps past +L clamped to +L
+    steps = torch.arange(VIRTUAL_T_STEPS, dtype=I32, device=dev)
+    clamped = torch.minimum(num_line[:, None], -num_line[:, None] + 2 * steps)
+    mod_addend = (clamped[:, None, :] * (2 * mods)[None, :, None]).reshape(
+        n, 8 * VIRTUAL_T_STEPS)
+    base = line_total + line_total
+    if not fake:
+        base = base + ((num_line << 4) | num_line)[:, None]
+    numer = torch.clamp_min(base[:, :, None] + mod_addend[:, None, :], 0)
+    q = torch.clamp_max(lanes.div_floor(
+        numer, (num_line * 34)[:, None, None]), 15)        # [N, 3, K]
+    if fake:
+        q = torch.clamp_max(_resolve_th_fake_bt709(
+            q, numer, num_line[:, None, None]), 15)
+    # punchthrough T packs its channels red high, unlike the opaque T mode
+    packed = (q[:, 0] << 10) | (q[:, 1] << 5) | q[:, 2]
+
+    mod_k = _i32(np.repeat(TH_MODS, VIRTUAL_T_STEPS), dev)
+    low_bit_zero = _i32(np.repeat(np.arange(8), VIRTUAL_T_STEPS) & 1,
+                        dev) == 0
+    h_q = h_iso_q.repeat_interleave(VIRTUAL_T_STEPS, dim=2)  # [N, 3, K]
+    packed_h2 = (h_q[:, 0] << 10) | (h_q[:, 1] << 5) | h_q[:, 2]
+
+    opts_nf, pw_nf = _without_fake_bt709(pixels, pw, options)
+    pw_nf = pw_nf.transpose(1, 2)[:, :, :, None]           # [N, 3, 16, 1]
+
+    def errors(recon):
+        return error_from_terms(recon_terms(recon, opts_nf)[:, :, None, :],
+                                pw_nf)                     # [N, 16, K]
+
+    tr = transparent[:, :, None]
+    h_errors = torch.where(tr, 0.0, errors(
+        torch.clamp_min(((h_q << 4) | h_q) - mod_k, 0)))
+    unq = (q << 4) | q
+    e_plus = errors(torch.clamp_max(unq + mod_k, 255))
+    e_minus = errors(torch.clamp_min(unq - mod_k, 0))
+    # scalar LessOrEqual is `<` (ParallelMath.h:1589-1597)
+    sel = torch.where(e_plus < e_minus, 1, 3).to(I32)
+    line_err = torch.where(tr, 0.0, torch.minimum(e_plus, e_minus))
+    del e_plus, e_minus
+    t_err = _chain_sum(torch.minimum(line_err, iso_error[:, :, None]), 1)
+    h_err = _chain_sum(torch.minimum(line_err, h_errors), 1)
+    use_h = (h_err < t_err) & ((packed < packed_h2) == low_bit_zero)
+    round_err = torch.where(use_h, h_err, t_err)
+
+    iso_px_err = torch.where(use_h[:, None, :], h_errors,
+                             iso_error[:, :, None])
+    sel = torch.where(iso_px_err < line_err, 0, sel)
+    sel = torch.where(tr, 2, sel)
+    selectors = _selector_bits(sel, 1)
+    del iso_px_err, line_err, h_errors, sel
+
+    win_err, win = lanes.lex_min_with_index(round_err, (1,))
+    best_packed = lanes.take_winner(packed, win)
+    best_sel = lanes.take_winner(selectors, win)
+    table = win // VIRTUAL_T_STEPS
+    line_color = (best_packed[:, None] >> _i32([10, 5, 0], dev)) & 15
+    t_hi, t_lo = _emit_tmode(line_color, iso_q, best_sel, table, False)
+
+    # selector remaps as bit math: sector [1, 0, 1, 0] == (sel & 1) ^ 1;
+    # sign [1, 0, 0, 1] == gray(sel) ^ 1
+    s = _unpack_selectors(best_sel)
+    h_hi, h_lo = _emit_hmode(
+        torch.stack([best_packed, lanes.take_winner(packed_h2, win)], 1),
+        _pixel_bits((s & 1) ^ 1), _pixel_bits(((s ^ (s >> 1)) & 1) ^ 1),
+        table, False)
+    best_use_h = lanes.take_winner(use_h, win)
+    stage.update(win_err, rank_base, torch.where(best_use_h, h_hi, t_hi),
+                 torch.where(best_use_h, h_lo, t_lo))
+
+
+def _test_half_block_punchthrough(packed, sector_pw, sector_transparent,
+                                  modifier, options: Options):
+    """TestHalfBlockPunchthrough (ETC.cpp:151-217) over a candidate axis:
+    packed [N, K] int32, sector_pw [N, 8, 3], sector_transparent [N, 8],
+    modifier [K] int32. The selector is remapped (1 -> 2, 2 -> 3); a
+    transparent pixel takes selector 1 at error 0."""
+    q = (packed[:, None, :] >> _channel_view(_i32([0, 5, 10], packed.device),
+                                             3)) & 31
+    unquant = (q << 3) | (q >> 2)                          # [N, 3, K]
+    modified = torch.stack([torch.maximum(unquant, modifier) - modifier,
+                            unquant,
+                            torch.clamp_max(unquant + modifier, 255)], 2)
+    terms = recon_terms(modified, options)[:, :, :, None, :]
+    pw = sector_pw.transpose(1, 2)[:, :, None, :, None]    # [N, 3, 1, 8, 1]
+    best, sel = lanes.lex_min_with_index(error_from_terms(terms, pw), 1)
+    tr = sector_transparent[:, :, None]                    # [N, 8, 1]
+    best = torch.where(tr, 0.0, best)
+    sel = torch.where(tr, 1, torch.clamp_max(sel << 1, 3))
+    return _chain_sum(best, 1), _selector_bits(sel, 1)
+
+
+def compress_etc1_punchthrough(stage: StageBest, rank_base: int, pixels, pw,
+                               transparent, options: Options):
+    """CompressETC1PunchthroughBlockInternal (ETC.cpp:2884-3058): the
+    differential mode with transparent pixels, the 8 tables x 17 offsets
+    one table-major candidate axis (K = 136)."""
+    n, dev = pixels.shape[0], pixels.device
+    n_offs = 17
+    mods = _i32(PUNCHTHROUGH_MODIFIERS, dev)
+    mod_k = _i32(np.repeat(PUNCHTHROUGH_MODIFIERS, n_offs), dev)
+    table_k = _i32(np.repeat(np.arange(8), n_offs), dev).expand(n, -1)
+    offs = torch.arange(-8, 9, dtype=I32, device=dev)
+    for flip in range(2):
+        diff_data, can_ignore = [], []
+        for sector in range(2):
+            idx = _i32(FLIP_TABLES[flip][sector], dev)
+            s_tr = transparent.index_select(1, idx)        # [N, 8]
+            cum = torch.sum(pixels.index_select(1, idx), dim=1, dtype=I32)
+            can_ignore.append(s_tr.all(dim=1))
+            # the reference counts *transparent* pixels into
+            # sectorNumOpaque (ETC.cpp:2955-2957), replicated
+            count = torch.sum(s_tr, dim=1, dtype=I32)
+            clamped = torch.maximum(-count[:, None],
+                                    torch.minimum(count[:, None], offs))
+            offset = (clamped[:, None, :] * mods[None, :, None]).reshape(n, -1)
+            cu = torch.minimum((255 * count)[:, None, None], torch.clamp_min(
+                cum[:, :, None] + offset[:, None, :], 0))  # [N, 3, K]
+            numer = (cu << 5) - cu + (cu >> 3) + (count << 7)[:, None, None]
+            quant = lanes.div_floor(
+                numer, (torch.clamp_min(count, 1) << 8)[:, None, None])
+            packed = quant[:, 0] | (quant[:, 1] << 5) | (quant[:, 2] << 10)
+            err, sel = _test_half_block_punchthrough(
+                packed, pw.index_select(1, idx), s_tr, mod_k, options)
+            diff_data.append(dict(error=err, color=packed, selectors=sel,
+                                  table=table_k,
+                                  urank=_unique_rank(packed, 8, n_offs)))
+        win = _resolve_differential(diff_data, n, stage.error,
+                                    can_ignore=can_ignore)
+        hi, lo = _emit_etc1(flip, 1, win, n, transparent=True)
+        stage.update(win[0]["total"], rank_base + flip, hi, lo)

@@ -36,6 +36,23 @@ def round_and_convert_to_int_nearest(v):
     return torch.floor(v + 0.5).to(I32)
 
 
+def round_up_to_int(v):
+    """RoundAndConvertTo* under RoundUpForScope: ceil (ParallelMath.h:1668)."""
+    return torch.ceil(v).to(I32)
+
+
+def round_down_to_int(v):
+    """RoundDownForScope: floor (ParallelMath.h:1674)."""
+    return torch.floor(v).to(I32)
+
+
+def div_floor(numer, divisor):
+    """Integer floor division of non-negative int32 lanes, 0 where the
+    divisor is 0 (the reference's scalar loops, e.g. ETC.cpp:438-446)."""
+    q = torch.div(numer, torch.clamp_min(divisor, 1), rounding_mode="floor")
+    return torch.where(divisor == 0, torch.zeros_like(q), q)
+
+
 def clamp(v, lo, hi):
     """ParallelMath::Clamp: min then max order preserved (scalar :1447-1454)."""
     return torch.clamp_min(torch.clamp_max(v, float(hi)), float(lo))

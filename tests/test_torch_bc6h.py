@@ -179,20 +179,25 @@ def test_device_default_is_the_card():
 
 def test_encode_checks_its_input():
     """Inputs the JAX entry points accept give their bytes: [N, 16, 3] and
-    [N, 16, 1] (JAX reads a missing channel as the last one), float16
-    input (cast by value, as JAX casts it), uint8 and int32 that wraps;
-    the JAX entry point's cast, then its pack run op by op, once for all
-    forms (the channels pack reads, taken with its own static indexing,
-    side by side). A wrong rank, a second axis other than 16 and no
-    channel are refused; an empty batch gives an empty output."""
+    [N, 16, 1] (JAX reads a missing channel as the last one), [N, 8, 4]
+    and [N, 20, 4] (JAX casts without a check and reads pixel p with a
+    static index, which clamps), float16 input (cast by value, as JAX
+    casts it), uint8 and int32 that wraps; the JAX entry point's cast,
+    then its pack run op by op, once for all forms (the pixels and
+    channels pack reads, taken with its own static indexing, side by
+    side). A wrong rank, no pixel and no channel are refused; an empty
+    batch gives an empty output."""
     import jax
 
     from convectionkernels_tpu.options import Options as JaxOptions
     px = hdr_blocks(4, seed=79)[:2]
     forms = (px[:, :, :3], px[:, :, :1], px.view(np.float16),
-             px.astype(np.uint8), px.astype(np.int32) + 65536)
+             px.astype(np.uint8), px.astype(np.int32) + 65536, px[:, :8],
+             np.concatenate([px, px[:, :4] ^ 0x1234], axis=1))
     arrs = [jnp.asarray(f, dtype=jnp.int16) for f in forms]
-    arr = jnp.concatenate([jnp.stack([a[:, :, ch] for ch in range(4)], -1)
+    arr = jnp.concatenate([jnp.stack([jnp.stack([a[:, p, ch]
+                                                 for ch in range(4)], -1)
+                                      for p in range(16)], 1)
                            for a in arrs])
     o = JaxOptions(seed_points=1, refine_rounds_bc6h=1)
     with jax.disable_jit():
@@ -201,7 +206,7 @@ def test_encode_checks_its_input():
     got = torch.cat([ckt.encode_bc6hu(f, ckt.Options(
         seed_points=1, refine_rounds_bc6h=1), device="cpu") for f in forms])
     np.testing.assert_array_equal(got.numpy(), want)
-    for bad in (px[:, :, 0], px[:, :8], px[:, :, :0]):
+    for bad in (px[:, :, 0], px[:, :0], px[:, :, :0]):
         with pytest.raises(ValueError):
             ckt.encode_bc6hu(bad, device="cpu")
     with pytest.raises(IndexError):

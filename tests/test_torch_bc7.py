@@ -260,6 +260,7 @@ if not torch.cuda.is_available():
                  lambda: ckt.encode_bc1(px),
                  lambda: ckt.encode_bc5s(px.to(torch.int8)),
                  lambda: ckt.encode_etc1(px),
+                 lambda: ckt.encode_etc2_punchthrough(px),
                  lambda: ckt.encode_eac11(px[:, :, 0].to(torch.int16)),
                  lambda: ckt.decode_bc7(torch.zeros((2, 16), dtype=torch.uint8))):
         try:
@@ -275,6 +276,10 @@ assert ckt.decode_bc7(out, device="cpu").shape == (2, 16, 4)
 assert ckt.encode_bc1(px, device="cpu").shape == (2, 8)
 assert ckt.encode_etc1(px, device="cpu").shape == (2, 8)
 assert ckt.encode_etc2_alpha(px, device="cpu").shape == (2, 8)
+assert ckt.encode_etc2(px, device="cpu").shape == (2, 8)
+assert ckt.encode_etc2_rgba(px, device="cpu").shape == (2, 16)
+px[0, :3, 3] = 255
+assert ckt.encode_etc2_punchthrough(px, device="cpu").shape == (2, 8)
 values = px[:, :, 0].to(torch.int16)
 assert ckt.encode_eac11(values, device="cpu").shape == (2, 8)
 assert len(s3tc_single_color.load_tables()) == 8

@@ -422,18 +422,18 @@ def test_encode_s3tc_above_the_chunk(card, entry, monkeypatch):
     np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
 
 
-def etc_encode(entry, flags, px, device):
+def etc_encode(entry, flags, px, device, threshold=0.5):
     if entry.startswith("eac11"):
         return ckt.encode_eac11(px, signed=entry == "eac11s", device=device)
-    return getattr(ckt, f"encode_{entry}")(px, ckt.Options(flags=flags),
-                                           device=device)
+    return getattr(ckt, f"encode_{entry}")(
+        px, ckt.Options(flags=flags, threshold=threshold), device=device)
 
 
 @pytest.mark.parametrize("case", ETC_CASES, ids=[c[0] for c in ETC_CASES])
 def test_encode_etc_golden_on_card(card, case):
-    name, entry, _, flags = case
+    name, entry, _, flags, threshold = case
     px, _, blocks, _ = load_etc(name)
-    got = etc_encode(entry, flags, px, None)      # device=None: the card
+    got = etc_encode(entry, flags, px, None, threshold)  # None: the card
     assert got.device.type == "cuda"
     np.testing.assert_array_equal(got.cpu().numpy(), blocks)
 
@@ -441,16 +441,22 @@ def test_encode_etc_golden_on_card(card, case):
 @pytest.fixture(scope="module")
 def full_width_inputs():
     """1,024 blocks, every 64th, of chip_smoke.py's full-width ETC inputs:
-    the BC7 texture and the JAX bench's int16 EAC values."""
+    the BC7 texture, the JAX bench's int16 EAC values and the texture with
+    the JAX bench's random alpha."""
     import chip_smoke
-    eac_u, eac_s, _ = chip_smoke.bench_rng44_draws()
-    return {"texture": chip_smoke.make_texture(seed=0)[::64],
-            "eac_unsigned": eac_u[::64], "eac_signed": eac_s[::64]}
+    eac_u, eac_s, _, alpha = chip_smoke.bench_rng44_draws()
+    tex = chip_smoke.make_texture(seed=0)
+    return {"texture": tex[::64], "eac_unsigned": eac_u[::64],
+            "eac_signed": eac_s[::64],
+            "texture_random_alpha": chip_smoke.with_alpha(tex, alpha)[::64]}
 
 
 ETC_FULL = (("etc1", "etc1", 0x108), ("etc1_fake709", "etc1", 0x508),
             ("etc2_alpha", "etc2_alpha", 0x108),
-            ("eac_r11", "eac11", 0x108), ("eac_r11s", "eac11s", 0x108))
+            ("eac_r11", "eac11", 0x108), ("eac_r11s", "eac11s", 0x108),
+            ("etc2", "etc2", 0x108), ("etc2_rgba", "etc2_rgba", 0x108),
+            ("etc2_fake709", "etc2", 0x508),
+            ("etc2_punchthrough", "etc2_punchthrough", 0x108))
 
 
 @pytest.mark.parametrize("config", ETC_FULL, ids=[c[0] for c in ETC_FULL])
@@ -460,11 +466,13 @@ def test_encode_etc_full_width_card_equals_cpu(card, full_width_inputs,
     the card and one chunk on the CPU."""
     from convectionkernels_tpu_torch import api
     _, entry, flags = config
-    source = {"eac11": "eac_unsigned", "eac11s": "eac_signed"}.get(
+    source = {"eac11": "eac_unsigned", "eac11s": "eac_signed",
+              "etc2_punchthrough": "texture_random_alpha"}.get(
         entry, "texture")
     px = torch.as_tensor(full_width_inputs[source])
     want = etc_encode(entry, flags, px, "cpu")
     monkeypatch.setattr(api, "CHUNK_ETC", 300)
+    monkeypatch.setattr(api, "CHUNK_ETC2", 300)
     monkeypatch.setattr(api, "CHUNK_EAC", 300)
     got = etc_encode(entry, flags, px.to(card), card)
     np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())

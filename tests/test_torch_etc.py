@@ -34,8 +34,8 @@ from convectionkernels_tpu_torch.options import Flags
 from convectionkernels_tpu_torch.tables import etc_tables
 from tests import blockgen
 from tests import test_etc_resolve_semantics as seq
-from tests.test_torch_goldens import (ETC_CASES, ETC_NOT_JITTED,
-                                      eac_blocks, load_etc)
+from tests.test_torch_goldens import (ETC2_ENTRIES, ETC_CASES,
+                                      ETC_NOT_JITTED, eac_blocks, load_etc)
 from tests.test_torch_ops import assert_same, both
 
 FAKE = Flags.DEFAULT | Flags.ETC_USE_FAKE_BT709
@@ -69,12 +69,17 @@ def blocks24(seed):
 
 # --- entry points against the goldens ------------------------------------------
 
-@pytest.mark.parametrize("case", ETC_CASES, ids=[c[0] for c in ETC_CASES])
+# the cases of this slice's entry points (tests/test_torch_etc2.py holds the
+# ETC2 color ones)
+ETC1_CASES = [c for c in ETC_CASES if c[1] not in ETC2_ENTRIES]
+
+
+@pytest.mark.parametrize("case", ETC1_CASES, ids=[c[0] for c in ETC1_CASES])
 def test_encode_matches_jax_golden(case):
     """Every entry point: ETC1 weighted, uniform, FakeBT709 fast and
     accurate, on tie-prone blocks; ETC2 alpha; EAC11 unsigned and signed
     past their clamps."""
-    name, entry, _, flags = case
+    name, entry, _, flags, _ = case
     px, stored_flags, blocks, _ = load_etc(name)
     assert stored_flags == flags
     got = port_encode(px, entry, flags)
@@ -180,7 +185,11 @@ def test_inputs_jax_accepts_give_its_bytes():
     np.testing.assert_array_equal(got.numpy(), want)
     values = eac_blocks(8, seed=625, signed=True)[:4].astype(np.int32)
     values[1] += 65536                                  # wraps to itself
-    for px in (values, values.astype(np.float64) - 0.5):
+    # JAX casts EAC11 input without a check, so [N, 8] and [N, 20] encode,
+    # the pixel index clamped by its static indexing
+    wide = np.concatenate([values, values[:, :4] + 7], axis=1)
+    for px in (values, values.astype(np.float64) - 0.5, values[:, :8],
+               wide):
         with jax.disable_jit():
             want = np.asarray(jax_etc.compress_eac11(
                 jnp.asarray(px, dtype=jnp.int16), True, o))
@@ -209,7 +218,9 @@ def test_tensors_cast_as_numpy():
 
 def test_inputs_jax_refuses_are_refused():
     """A wrong rank or a second axis other than 16 raises, as in JAX; so
-    does a list value that does not fit the entry point's dtype."""
+    does a list value that does not fit the entry point's dtype. EAC11
+    refuses a rank other than 2 (the JAX package encodes [N, 16, C] into an
+    array of another shape) and a second axis of 0."""
     from convectionkernels_tpu import api as jax_api
     px = np.zeros((2, 16, 4), dtype=np.uint8)
     for bad in (px[:, :, 0], px[:, :8], px[:, :, :0]):
@@ -221,7 +232,7 @@ def test_inputs_jax_refuses_are_refused():
         jax_api._as_block_array([[[300] * 4] * 16])
     with pytest.raises(OverflowError):
         ckt.encode_etc1([[[300] * 4] * 16], device="cpu")
-    for bad in (px[:, :, 0].astype(np.int16)[:, :8], px.astype(np.int16)):
+    for bad in (px.astype(np.int16), px[:, :0, 0].astype(np.int16)):
         with pytest.raises(ValueError):
             ckt.encode_eac11(bad, device="cpu")
     assert ckt.encode_eac11(px[:0, :, 0], device="cpu").shape == (0, 8)

@@ -32,10 +32,13 @@ of S3TC_NOT_JITTED, `api_blocks` from its jitted `encode_bc1` ...
 `encode_bc5s`. The two agree in every case that has both.
 
 The ETC golden (etc_golden.npz) holds, for each case of ETC_CASES, the
-pixels (uint8 [N, 16, 4], or int16 [N, 16] for EAC11), the case's Options
-flags (`flags`), `blocks` from the JAX package's `models.etc` functions run
-op by op, and, except for the cases of ETC_NOT_JITTED, `api_blocks` from
-its jitted `encode_etc1` / `encode_etc2_alpha` / `encode_eac11`.
+pixels (uint8 [N, 16, 4], or int16 [N, 16] for EAC11), the case's entry
+point (`entry`), Options flags (`flags`) and threshold (`threshold`),
+`blocks` from the JAX package's `models.etc` functions run op by op
+(composed as its api.py composes them, the punchthrough split included),
+and, except for the cases of ETC_NOT_JITTED, `api_blocks` from its jitted
+entry point. A punchthrough case also holds `mono_blocks`, the JAX
+package's one-program `compress_etc2(..., True)` run op by op.
 
 Regenerate the files with:
     python -m tests.test_torch_goldens [bc7|bc6h|s3tc|etc]
@@ -124,21 +127,39 @@ S3TC_NOT_JITTED = ("bc3_default", "bc4u_default", "bc5u_default",
 FAKE_BT709 = 0x400           # Flags.ETC_USE_FAKE_BT709
 FAKE_BT709_ACCURATE = 0x800  # Flags.ETC_FAKE_BT709_ACCURATE
 
-# (name, entry point, corpus, flags) of the ETC goldens
+# (name, entry point, corpus, flags, Options.threshold) of the ETC goldens
 ETC_CASES = (
-    ("etc1_default", "etc1", "mixed1", DEFAULT),
-    ("etc1_uniform", "etc1", "mixed2", DEFAULT | UNIFORM),
-    ("etc1_fake709", "etc1", "mixed3", DEFAULT | FAKE_BT709),
+    ("etc1_default", "etc1", "mixed1", DEFAULT, 0.5),
+    ("etc1_uniform", "etc1", "mixed2", DEFAULT | UNIFORM, 0.5),
+    ("etc1_fake709", "etc1", "mixed3", DEFAULT | FAKE_BT709, 0.5),
     ("etc1_fake709_accurate", "etc1", "mixed4",
-     DEFAULT | FAKE_BT709 | FAKE_BT709_ACCURATE),
-    ("etc1_ties", "etc1", "ties", DEFAULT),
-    ("etc2_alpha", "etc2_alpha", "alpha", DEFAULT),
-    ("eac_r11", "eac11", "eac", DEFAULT),
-    ("eac_r11s", "eac11s", "eacs", DEFAULT),
+     DEFAULT | FAKE_BT709 | FAKE_BT709_ACCURATE, 0.5),
+    ("etc1_ties", "etc1", "ties", DEFAULT, 0.5),
+    ("etc2_alpha", "etc2_alpha", "alpha", DEFAULT, 0.5),
+    ("eac_r11", "eac11", "eac", DEFAULT, 0.5),
+    ("eac_r11s", "eac11s", "eacs", DEFAULT, 0.5),
+    ("etc2_default", "etc2", "mixed5", DEFAULT, 0.5),
+    ("etc2_uniform", "etc2", "mixed6", DEFAULT | UNIFORM, 0.5),
+    ("etc2_fake709", "etc2", "mixed7", DEFAULT | FAKE_BT709, 0.5),
+    ("etc2_fake709_accurate", "etc2", "mixed8",
+     DEFAULT | FAKE_BT709 | FAKE_BT709_ACCURATE, 0.5),
+    ("etc2_modes", "etc2", "modes", DEFAULT, 0.5),
+    ("etc2_rgba", "etc2_rgba", "alpha2", DEFAULT, 0.5),
+    ("etc2_punchthrough", "etc2_punchthrough", "punch", DEFAULT, 0.5),
+    ("etc2_punchthrough_thr0", "etc2_punchthrough", "thresholds", DEFAULT,
+     0.0),
+    ("etc2_punchthrough_thr1", "etc2_punchthrough", "thresholds", DEFAULT,
+     1.0),
+    ("etc2_punchthrough_thr_off_grid", "etc2_punchthrough", "thresholds",
+     DEFAULT | UNIFORM, 0.3),
 )
-# Cases whose jitted JAX encoder is not stored (none: XLA:CPU compiles
-# every ETC case's encoder within minutes)
-ETC_NOT_JITTED = ()
+# the entry points of the ETC2 color slice
+ETC2_ENTRIES = ("etc2", "etc2_rgba", "etc2_punchthrough")
+# Cases whose jitted JAX encoder is not stored. XLA:CPU compiles every ETC
+# case's encoder within minutes, but at threshold 1.0 the JAX package's
+# punchthrough dispatch compares its uint8 alpha with 256 in NumPy
+# (api.py:372-373), which crashes NumPy 2.0.2 with a segmentation fault.
+ETC_NOT_JITTED = ("etc2_punchthrough_thr1",)
 
 
 def eac_blocks(n, seed, signed):
@@ -178,6 +199,78 @@ def etc_ties_blocks():
     return np.stack(out)
 
 
+def etc2_mode_blocks():
+    """64 blocks built to reach each ETC2 color mode: 16 smooth gradients
+    (planar), 16 with one to three pixels of a far color beside a line of
+    three colors (T), 16 of two clusters spread over the block (H), 8 of
+    two unrelated halves and 8 near flat blocks (differential: ETC2's ETC1
+    stage runs the differential mode only, as the JAX package's
+    compress_etc2 passes punchthrough_min_d=True)."""
+    rng = np.random.default_rng(641)
+    out = []
+    y, x = np.divmod(np.arange(16), 4)
+    for _ in range(16):                                  # planar
+        base = rng.integers(40, 200, 3)
+        gx, gy = rng.integers(-12, 13, 3), rng.integers(-12, 13, 3)
+        out.append(base + gx * x[:, None] + gy * y[:, None])
+    for _ in range(16):                                  # T
+        a, b = rng.integers(0, 256, 3), rng.integers(0, 256, 3)
+        spread = rng.integers(6, 30)
+        px = a + rng.choice([-spread, 0, spread], 16)[:, None]
+        px[rng.choice(16, rng.integers(1, 4), replace=False)] = b
+        out.append(px)
+    for _ in range(16):                                  # H
+        a, b = rng.integers(0, 256, 3), rng.integers(0, 256, 3)
+        spread = rng.integers(3, 20)
+        group = rng.permutation(np.arange(16) % 2).astype(bool)
+        px = np.where(group[:, None], b, a) + rng.choice(
+            [-spread, spread], 16)[:, None]
+        out.append(px)
+    for _ in range(8):                                   # two halves
+        halves = rng.integers(0, 256, (2, 3))
+        px = halves[(np.arange(16) % 4) // 2] + rng.integers(-4, 5, (16, 3))
+        out.append(px)
+    for _ in range(8):                                   # differential
+        out.append(rng.integers(0, 256, 3) + rng.integers(-3, 4, (16, 3)))
+    rgb = np.clip(np.stack(out), 0, 255)
+    return np.concatenate([rgb, np.full((64, 16, 1), 255)], 2).astype(
+        np.uint8)
+
+
+def etc2_punchthrough_blocks():
+    """64 blocks of mixed transparency at the default threshold (alpha
+    below 128 is transparent): 8 all transparent, 8 without a transparent
+    pixel, 8 with alpha only at 127 and 128, 8 with one transparent
+    pixel, 8 with a whole half transparent (a sector ETC1 may ignore), the
+    rest a random share of transparent pixels."""
+    rng = np.random.default_rng(643)
+    px = blockgen.mixed_blocks(64, seed=645)
+    alpha = np.where(rng.random((64, 16)) < rng.random((64, 1)), 0, 255)
+    alpha[:8] = rng.integers(0, 128, (8, 16))
+    alpha[8:16] = rng.integers(128, 256, (8, 16))
+    alpha[16:24] = rng.choice([127, 128], (8, 16))
+    alpha[24:32] = 255
+    alpha[24:32][np.arange(8), rng.integers(0, 16, 8)] = 0
+    halves = ([0, 1, 4, 5, 8, 9, 12, 13], [2, 3, 6, 7, 10, 11, 14, 15],
+              list(range(8)), list(range(8, 16)))       # g_flipTables
+    alpha[32:40] = 255
+    for i in range(8):
+        alpha[32 + i, halves[i % 4]] = 0
+    px[:, :, 3] = alpha
+    return px
+
+
+def etc2_threshold_blocks():
+    """32 blocks whose alpha straddles the thresholds 0.0 (transparent
+    below 1), 1.0 (below 256: every pixel) and 0.3 (below 77): alpha
+    values 0, 1, 76, 77, 255 and random ones."""
+    rng = np.random.default_rng(647)
+    px = blockgen.mixed_blocks(32, seed=649)
+    px[:, :, 3] = rng.choice([0, 1, 76, 77, 255], (32, 16))
+    px[24:, :, 3] = rng.integers(0, 256, (8, 16))
+    return px
+
+
 def etc_corpus(name):
     if name.startswith("mixed"):
         return blockgen.mixed_blocks(64, seed=600 + int(name[-1]))
@@ -185,6 +278,14 @@ def etc_corpus(name):
         return etc_ties_blocks()
     if name == "alpha":
         return blockgen.alpha_blocks(64, seed=605)
+    if name == "alpha2":
+        return blockgen.alpha_blocks(64, seed=651)
+    if name == "modes":
+        return etc2_mode_blocks()
+    if name == "punch":
+        return etc2_punchthrough_blocks()
+    if name == "thresholds":
+        return etc2_threshold_blocks()
     return eac_blocks(64, seed=607, signed=name == "eacs")
 
 
@@ -388,27 +489,60 @@ def jax_s3tc_op_by_op(px, fmt, fields):
     return np.asarray(out)
 
 
-def jax_etc_bytes(px, entry, flags):
+def jax_etc_bytes(px, entry, flags, threshold):
     import convectionkernels_tpu as ck
     if entry.startswith("eac11"):
         return np.asarray(ck.encode_eac11(px, signed=entry == "eac11s"))
     return np.asarray(getattr(ck, f"encode_{entry}")(
-        px, ck.Options(flags=flags)))
+        px, ck.Options(flags=flags, threshold=threshold)))
 
 
-def jax_etc_op_by_op(px, entry, flags):
-    """The JAX package's models.etc functions, not jitted."""
+def jax_etc_op_by_op(px, entry, flags, threshold):
+    """The JAX package's models.etc functions, not jitted, composed as its
+    api.py composes them: ETC2 RGBA is the alpha block then the color
+    block, and ETC2 punchthrough its host dispatch's split, blocks without
+    a transparent pixel through compress_etc2, the others through
+    compress_etc2_punchthrough_only."""
     import jax
 
     from convectionkernels_tpu.models import etc
     from convectionkernels_tpu.options import Options
-    o = Options(flags=flags)
+    o = Options(flags=flags, threshold=threshold)
     with jax.disable_jit():
         if entry == "etc1":
             return np.asarray(etc.compress_etc1(px, o))
         if entry == "etc2_alpha":
             return np.asarray(etc.compress_etc2_alpha(px, o))
+        if entry == "etc2":
+            return np.asarray(etc.compress_etc2(px, o, False))
+        if entry == "etc2_rgba":
+            return np.concatenate([np.asarray(etc.compress_etc2_alpha(px, o)),
+                                   np.asarray(etc.compress_etc2(px, o, False))],
+                                  axis=-1)
+        if entry == "etc2_punchthrough":
+            f_thr = max(min(1.0, threshold), 0.0) * 255.0
+            thr = int(np.floor(np.float32(f_thr) + 1.0))
+            pt = (px[:, :, 3].astype(np.int32) < thr).any(axis=1)
+            out = np.zeros((len(px), 8), dtype=np.uint8)
+            if (~pt).any():
+                out[~pt] = np.asarray(etc.compress_etc2(px[~pt], o, False))
+            if pt.any():
+                out[pt] = np.asarray(etc.compress_etc2_punchthrough_only(
+                    px[pt], o))
+            return out
         return np.asarray(etc.compress_eac11(px, entry == "eac11s", o))
+
+
+def jax_etc2_monolithic(px, flags, threshold):
+    """The JAX package's one-program ETC2 punchthrough encode,
+    compress_etc2(..., True), op by op."""
+    import jax
+
+    from convectionkernels_tpu.models import etc
+    from convectionkernels_tpu.options import Options
+    with jax.disable_jit():
+        return np.asarray(etc.compress_etc2(
+            px, Options(flags=flags, threshold=threshold), True))
 
 
 def load_etc(name):
@@ -418,6 +552,16 @@ def load_etc(name):
         api = z[f"{name}_api_blocks"] if f"{name}_api_blocks" in z else None
         return (z[f"{name}_pixels"], int(z[f"{name}_flags"]),
                 z[f"{name}_blocks"], api)
+
+
+def load_etc_case(name):
+    """The stored entry point, Options.threshold and, for a punchthrough
+    case, the bytes of the JAX package's one-program encode (None
+    otherwise) of an ETC golden."""
+    with np.load(ETC_PATH) as z:
+        mono = z[f"{name}_mono_blocks"] if f"{name}_mono_blocks" in z \
+            else None
+        return str(z[f"{name}_entry"]), float(z[f"{name}_threshold"]), mono
 
 
 def load_s3tc(name):
@@ -500,31 +644,46 @@ def test_s3tc_golden_matches_jax(case):
 @pytest.mark.slow
 @pytest.mark.parametrize("case", ETC_CASES, ids=[c[0] for c in ETC_CASES])
 def test_etc_golden_matches_jax(case):
-    name, entry, corpus, flags = case
+    name, entry, corpus, flags, threshold = case
     px, stored_flags, blocks, api_blocks = load_etc(name)
     np.testing.assert_array_equal(px, etc_corpus(corpus))
     assert stored_flags == flags
-    np.testing.assert_array_equal(jax_etc_op_by_op(px, entry, flags), blocks)
+    assert load_etc_case(name)[:2] == (entry, threshold)
+    np.testing.assert_array_equal(
+        jax_etc_op_by_op(px, entry, flags, threshold), blocks)
     assert (api_blocks is None) == (name in ETC_NOT_JITTED)
     if api_blocks is not None:
-        np.testing.assert_array_equal(jax_etc_bytes(px, entry, flags),
-                                      api_blocks)
+        np.testing.assert_array_equal(
+            jax_etc_bytes(px, entry, flags, threshold), api_blocks)
+    mono = load_etc_case(name)[2]
+    assert (mono is None) == (entry != "etc2_punchthrough")
+    if mono is not None:
+        np.testing.assert_array_equal(
+            jax_etc2_monolithic(px, flags, threshold), mono)
 
 
 def _write_etc():
     import time
     out = {}
-    for name, entry, corpus, flags in ETC_CASES:
+    for name, entry, corpus, flags, threshold in ETC_CASES:
         px = etc_corpus(corpus)
         out[f"{name}_pixels"] = px
         out[f"{name}_flags"] = np.int32(flags)
+        out[f"{name}_entry"] = np.str_(entry)
+        out[f"{name}_threshold"] = np.float64(threshold)
         t0 = time.perf_counter()
-        out[f"{name}_blocks"] = jax_etc_op_by_op(px, entry, flags)
+        out[f"{name}_blocks"] = jax_etc_op_by_op(px, entry, flags, threshold)
         t1 = time.perf_counter()
         if name not in ETC_NOT_JITTED:
-            out[f"{name}_api_blocks"] = jax_etc_bytes(px, entry, flags)
+            out[f"{name}_api_blocks"] = jax_etc_bytes(px, entry, flags,
+                                                      threshold)
+        t2 = time.perf_counter()
+        if entry == "etc2_punchthrough":
+            out[f"{name}_mono_blocks"] = jax_etc2_monolithic(px, flags,
+                                                             threshold)
         print("etc", name, f"op by op {t1 - t0:.1f} s, jitted "
-              f"{time.perf_counter() - t1:.1f} s", flush=True)
+              f"{t2 - t1:.1f} s, one program {time.perf_counter() - t2:.1f} "
+              f"s", flush=True)
     np.savez_compressed(ETC_PATH, **out)
 
 
