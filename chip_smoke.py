@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the torch port's main paths (BC7 q50, BC6H, S3TC, ETC1, ETC2 and
-EAC11 encode) on one CUDA card and check them.
+EAC11 encode, the image-to-file CLI and the block axis split over devices
+and processes) on one CUDA card and check them.
 
     python3 chip_smoke.py                  # the check, on one card
     python3 chip_smoke.py --chunks 8192,16384,32768,65536
@@ -76,10 +77,29 @@ Phases, each printed on its own line; a failed check prints
          transparent pixel recorded); each timed, its peak device memory
          read, and 1,024 of its blocks held byte-equal to the port's CPU
          bytes (no kernel either);
-  6. ptxas's registers, stack and spills of the three redesigned BC7
+  6. the CLI (`cli`): the BC7 texture saved as .npy goes through
+     convectionkernels_tpu_torch.cli on the card: -f bc7 -q 50 to .dds,
+     once as `python -m convectionkernels_tpu_torch.cli` in a process of
+     its own and once in this one, -f bc6h to .dds, -f etc2 -mips to .ktx
+     (11 levels), -f eac_rg11 to .ktx; each run timed from image load to
+     file written, the BC7 and BC6H kernels' launches counted over it
+     (all three BC7 kernels must launch for bc7, the BC6H kernel for
+     bc6h), each file's header checked against its format's layout, each
+     level's payload held against the entry points on the card for that
+     level's blocks, and 1,024 blocks against the port on the CPU;
+  7. the split over devices (`sharded`): encode_sharded of BC7 q50 and
+     of ETC2 punchthrough on the texture over three slices of card 0
+     (and over every card when there are several), each byte-equal to
+     one call;
+  8. the split over processes (`distributed`): two gloo processes
+     sharing card 0 and one NCCL process, encode_image_distributed of
+     encode_bc1 on the texture, each rank's slice and the gathered whole
+     held against one call;
+  9. ptxas's registers, stack and spills of the three redesigned BC7
      kernels, one JSON line describing every kernel (bounds from the work
-     model below, at the FMA-free issue rate), the card's name and power
-     limit, and the final {"ok": true, ...} line.
+     model below, at the FMA-free issue rate; `launches` from the
+     full-width runs, `cli_launches` from each CLI run), the card's name
+     and power limit, and the final {"ok": true, ...} line.
 
 Needs the CUDA toolkit (nvcc) and a card; imports nothing of JAX.
 """
@@ -90,9 +110,11 @@ import argparse
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -630,12 +652,6 @@ def ptxas_usage(log_text):
     return usage
 
 
-def psnr(a, b):
-    import numpy as np
-    mse = np.mean((a.astype(np.float64) - b.astype(np.float64)) ** 2)
-    return float("inf") if mse == 0 else 10 * np.log10(255.0 ** 2 / mse)
-
-
 def phase(name, **fields):
     print(json.dumps(dict(phase=name, **fields)), flush=True)
 
@@ -729,6 +745,313 @@ def chunk_sweep(api, attr, chunks, encode, dev):
     return sweep
 
 
+# --- the CLI and the block axis split over devices and over processes --------
+
+# the CLI runs of the `cli` phase: (label, flags, output file, container
+# format); the first also runs as `python -m convectionkernels_tpu_torch.cli`
+CLI_RUNS = (
+    ("bc7", ["-f", "bc7", "-q", "50"], "bc7.dds", "bc7"),
+    ("bc6h", ["-f", "bc6h"], "bc6h.dds", "bc6h_uf"),
+    ("etc2_mips", ["-f", "etc2", "-mips"], "etc2.ktx", "etc2"),
+    ("eac_rg11", ["-f", "eac_rg11"], "eac_rg11.ktx", "eac_rg11"),
+)
+# blocks a chunk of a BC7 or BC6H encode on the CPU: the plain versions run
+# one chunk of 1,024 blocks far slower than 16 chunks of 64 (their
+# per-candidate tensors leave the caches); the bytes are the same
+CPU_CHUNK = 64
+
+
+def cli_bytes(api, cli, label, blocks, dev):
+    """What the CLI run `label` must write for the blocks of one level, from
+    the API's entry points on `dev`, through the CLI's input transforms."""
+    import torch
+    if label == "bc7":
+        return api.encode_bc7(blocks, quality=50, device=dev)
+    if label == "bc6h":
+        return api.encode_bc6hu(cli._u8_to_half_bits(blocks), device=dev)
+    if label == "etc2_mips":
+        return api.encode_etc2(blocks, device=dev)
+    return torch.cat([api.encode_eac11(cli._eac_channel(blocks, ch),
+                                       device=dev) for ch in (0, 1)], dim=1)
+
+
+def container_levels(path, fmt, sizes):
+    """Each level's payload, uint8 [blocks, bytes], of the KTX or DDS file
+    `path`, after checking its header against the layout of `fmt` with the
+    level sizes `sizes` [(width, height), ...]; raises SystemExit naming
+    the first field that is off."""
+    import struct
+
+    import numpy as np
+
+    from convectionkernels_tpu_torch.utils import containers as ct
+    with open(path, "rb") as f:
+        data = f.read()
+    width = ct.BLOCK_BYTES[fmt]
+    nbytes = [((w + 3) // 4) * ((h + 3) // 4) * width for w, h in sizes]
+    (w0, h0), mips = sizes[0], len(sizes)
+    if path.endswith(".dds"):
+        flags = 0x1 | 0x2 | 0x4 | 0x1000 | 0x80000 | (0x20000 if mips > 1
+                                                       else 0)
+        fields = {
+            "magic": (data[:4], b"DDS "),
+            "size, flags, height, width, pitch, depth, mips": (
+                struct.unpack_from("<7I", data, 4),
+                (124, flags, h0, w0, max(1, (w0 + 3) // 4) * width, 0, mips)),
+            "pixel format size, flags, fourCC": (
+                struct.unpack_from("<2I4s", data, 76), (32, 0x4, b"DX10")),
+            "caps": (struct.unpack_from("<I", data, 108)[0],
+                     0x1000 | (0x400008 if mips > 1 else 0)),
+            "dxgi format, dimension, misc, array size, misc2": (
+                struct.unpack_from("<5I", data, 128),
+                (ct.DXGI_FORMATS[fmt], 3, 0, 1, 0)),
+            "length": (len(data), 148 + sum(nbytes)),
+        }
+        offsets, pos = [], 148
+        for n in nbytes:
+            offsets.append(pos)
+            pos += n
+    else:
+        fields = {
+            "magic": (data[:12], ct._KTX_MAGIC),
+            "header": (struct.unpack_from("<13I", data, 12),
+                       (0x04030201, 0, 1, 0, ct.GL_INTERNAL_FORMATS[fmt],
+                        ct.GL_BASE_FORMATS[fmt], w0, h0, 0, 0, 1, mips, 0)),
+        }
+        offsets, pos = [], 64
+        for i, n in enumerate(nbytes):
+            fields[f"level {i} size"] = (
+                struct.unpack_from("<I", data, pos)[0] if pos + 4 <= len(data)
+                else None, n)
+            offsets.append(pos + 4)
+            pos += 4 + n + (-n) % 4
+        fields["length"] = (len(data), pos)
+    for name, (got, want) in fields.items():
+        if got != want:
+            raise SystemExit(f"{os.path.basename(path)}: {name} is {got}, "
+                             f"not {want}")
+    return [np.frombuffer(data, np.uint8, n, off).reshape(-1, width)
+            for off, n in zip(offsets, nbytes)]
+
+
+def cli_phase(api, dev, img_path, img, work):
+    """The `cli` phase: each CLI_RUNS run on the card, in this process (the
+    kernels' counts set to 0 just before it and read just after), and the
+    first also as `python -m convectionkernels_tpu_torch.cli` in a process
+    of its own. Each file's header is checked, each level's payload held
+    against the API's entry points on the card for that level's blocks,
+    and 1,024 blocks of level 0 against the port on the CPU. Returns the
+    launches of each run."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+
+    from convectionkernels_tpu_torch import cli
+    from convectionkernels_tpu_torch.models import bc6h_kernel, bc7_kernel
+    from convectionkernels_tpu_torch.utils import image as image_util
+    from convectionkernels_tpu_torch.utils import native
+    label, flags, name, _ = CLI_RUNS[0]
+    module_out = os.path.join(work, "module_" + name)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "convectionkernels_tpu_torch.cli", *flags,
+         img_path, module_out], cwd=REPO, capture_output=True, text=True,
+        env=dict(os.environ, PYTHONPATH=REPO), timeout=600)
+    module_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise SystemExit(f"python -m convectionkernels_tpu_torch.cli "
+                         f"{' '.join(flags)} exited {proc.returncode}: "
+                         f"{proc.stderr[-2000:]}")
+    phase("cli_module", run=label, flags=flags, wall_s=module_s,
+          said=proc.stdout.strip(), native_blockify=native.available())
+    launched = {}
+    for label, flags, name, fmt in CLI_RUNS:
+        path = os.path.join(work, name)
+        torch.cuda.synchronize()
+        bc7_kernel.LAUNCHES.clear()
+        bc6h_kernel.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()) as said:
+            rc = cli.main(flags + [img_path, path])
+        wall_s = time.perf_counter() - t0
+        launches = {**{k: bc7_kernel.LAUNCHES[k] for k in BC7_KERNELS},
+                    BC6H_KERNEL: bc6h_kernel.LAUNCHES[BC6H_KERNEL]}
+        launched[label] = launches
+        if rc != 0:
+            raise SystemExit(f"the CLI {' '.join(flags)} returned {rc}")
+        images = image_util.mip_chain(img) if "-mips" in flags else [img]
+        payloads = container_levels(path, fmt, [(level.shape[1],
+                                                 level.shape[0])
+                                                for level in images])
+        bad_levels = [i for i, (level, got) in enumerate(zip(images,
+                                                             payloads))
+                      if not np.array_equal(got, cli_bytes(
+                          api, cli, label, image_util.blockify(level),
+                          dev).cpu().numpy())]
+        rows = np.arange(0, len(payloads[0]),
+                         max(1, len(payloads[0]) // CPU_CHECK_BLOCKS))
+        chunks = (api.CHUNK_BC7, api.CHUNK_BC6H)
+        t0 = time.perf_counter()
+        try:
+            api.CHUNK_BC7 = api.CHUNK_BC6H = CPU_CHUNK
+            cpu = cli_bytes(api, cli, label, image_util.blockify(img)[rows],
+                            "cpu").numpy()
+        finally:
+            api.CHUNK_BC7, api.CHUNK_BC6H = chunks
+        cpu_s = time.perf_counter() - t0
+        cpu_bad = int((payloads[0][rows] != cpu).any(axis=1).sum())
+        module_equal = None
+        if label == CLI_RUNS[0][0]:
+            with open(path, "rb") as a, open(module_out, "rb") as b:
+                module_equal = a.read() == b.read()
+        phase("cli", run=label, flags=flags, wall_s=wall_s,
+              levels=len(payloads), file_bytes=os.path.getsize(path),
+              launches=launches, api_mismatched_levels=bad_levels,
+              cpu_blocks_compared=len(rows), cpu_mismatched_blocks=cpu_bad,
+              cpu_seconds=cpu_s, module_file_equal=module_equal,
+              said=said.getvalue().strip())
+        if bad_levels or cpu_bad or module_equal is False:
+            raise SystemExit(f"the CLI's {name} differs from the API's bytes "
+                             f"on the card (levels {bad_levels}), from the "
+                             f"CPU's ({cpu_bad} blocks) or from the module "
+                             f"run's file")
+    need = {"bc7": BC7_KERNELS, "bc6h": (BC6H_KERNEL,)}
+    for label, names in need.items():
+        if not all(launched[label][k] for k in names):
+            raise SystemExit(f"the CLI's {label} run did not launch every "
+                             f"kernel of its path: {launched[label]}")
+    return launched
+
+
+def sharded_phase(api, dev, tex):
+    """The `sharded` phase: encode_sharded of BC7 q50 and of ETC2
+    punchthrough over three slices of one card (65,536 blocks, not a
+    multiple of 3), and over every card when there is more than one, each
+    byte-equal to one call."""
+    import functools
+
+    import torch
+
+    from convectionkernels_tpu_torch.parallel import sharding
+    splits = [("cuda0_x3", [dev] * 3)]
+    if torch.cuda.device_count() > 1:
+        splits.append(("every_card", None))
+    for name, encode in (
+            ("bc7_q50", functools.partial(api.encode_bc7, quality=50)),
+            ("etc2_punchthrough", api.encode_etc2_punchthrough)):
+        t0 = time.perf_counter()
+        want = encode(tex, device=dev).cpu().numpy()
+        one_s = time.perf_counter() - t0
+        for split, devices in splits:
+            t0 = time.perf_counter()
+            got = sharding.encode_sharded(encode, tex, devices)
+            split_s = time.perf_counter() - t0
+            bad = (int((got != want).any(axis=1).sum())
+                   if got.shape == want.shape else len(want))
+            phase("sharded", config=name, split=split, blocks=len(tex),
+                  seconds=split_s, one_call_seconds=one_s,
+                  mismatched_blocks=bad)
+            if bad:
+                raise SystemExit(f"encode_sharded of {name} over {split}: "
+                                 f"{bad} blocks differ from one call")
+
+
+def free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def distributed_worker(backend, init_method, world, rank, image_path,
+                       out_path):
+    """One process of the `distributed` phase: encode_image_distributed of
+    encode_bc1 on card 0, each rank's own slice and then the whole output
+    gathered, saved to `out_path` (.npz)."""
+    import numpy as np
+    import torch
+
+    from convectionkernels_tpu_torch import api
+    from convectionkernels_tpu_torch.parallel import distributed
+    torch.cuda.set_device(0)
+    distributed.initialize(backend, init_method, world, rank)
+    try:
+        img = np.load(image_path)
+        # gloo ranks name the card; the NCCL rank takes the default one
+        dev = "cuda:0" if backend == "gloo" else None
+        local, start, n_blocks = distributed.encode_image_distributed(
+            api.encode_bc1, img, device=dev)
+        full = distributed.encode_image_distributed(
+            api.encode_bc1, img, device=dev, assemble=True)
+    finally:
+        torch.distributed.destroy_process_group()
+    np.savez(out_path, local=local, start=start, n_blocks=n_blocks,
+             full=full)
+
+
+def distributed_phase(api, dev, img_path, img, work):
+    """The `distributed` phase: two gloo processes sharing card 0 (NCCL
+    refuses two ranks on one card) and one NCCL process, all started at
+    once, each encode_image_distributed of encode_bc1 on the texture, with
+    and without assembly, held against one call."""
+    import numpy as np
+
+    from convectionkernels_tpu_torch.utils import image as image_util
+    groups = (("gloo", f"tcp://localhost:{free_port()}", 2),
+              ("nccl", f"tcp://localhost:{free_port()}", 1))
+    runs = [(backend, init, world, rank,
+             os.path.join(work, f"{backend}{rank}.npz"))
+            for backend, init, world in groups for rank in range(world)]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", "import chip_smoke; chip_smoke."
+         f"distributed_worker({b!r}, {i!r}, {w}, {r}, {img_path!r}, {o!r})"],
+        cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO), text=True,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+        for b, i, w, r, o in runs]
+    try:
+        outs = [p.communicate(timeout=600)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    seconds = time.perf_counter() - t0
+    for (backend, _, world, rank, _), p, out in zip(runs, procs, outs):
+        if p.returncode != 0:
+            raise SystemExit(f"distributed {backend} rank {rank} of {world} "
+                             f"exited {p.returncode}: {out[-2000:]}")
+    want = api.encode_bc1(image_util.blockify(img), device=dev).cpu().numpy()
+    for backend, _, world in groups:
+        parts = []
+        assembled_bad = []
+        for b, _, _, rank, out_path in runs:
+            if b != backend:
+                continue
+            with np.load(out_path) as z:
+                parts.append((int(z["start"]), z["local"]))
+                n_blocks = int(z["n_blocks"])
+                full = z["full"]
+            assembled_bad.append(
+                int((full != want).any(axis=1).sum())
+                if full.shape == want.shape else len(want))
+        parts.sort(key=lambda part: part[0])
+        local = np.concatenate([p for _, p in parts])
+        local_bad = (int((local != want).any(axis=1).sum())
+                     if local.shape == want.shape else len(want))
+        phase("distributed", backend=backend, world=world,
+              blocks=n_blocks, starts=[s for s, _ in parts],
+              local_blocks=[len(p) for _, p in parts],
+              local_mismatched_blocks=local_bad,
+              assembled_mismatched_blocks=assembled_bad,
+              seconds_all_processes=seconds)
+        if n_blocks != len(want) or local_bad or any(assembled_bad):
+            raise SystemExit(f"encode_image_distributed over {world} {backend} "
+                             f"process(es) differs from one call")
+
+
 # --- main ----------------------------------------------------------------------
 
 def main(argv=None):
@@ -778,6 +1101,7 @@ def main(argv=None):
     from convectionkernels_tpu_torch import api, cuda_lib, exact_probe
     from convectionkernels_tpu_torch.models import (bc6h, bc6h_kernel, bc7,
                                                     bc7_kernel, etc)
+    from convectionkernels_tpu_torch.utils import metrics
 
     dev = torch.device("cuda:0")
     torch.cuda.set_device(dev)
@@ -968,7 +1292,7 @@ def main(argv=None):
         raise SystemExit("encode_bc7 is not deterministic")
     ms = statistics.median(times)
     decoded = api.decode_bc7(out, device="cpu").numpy()
-    quality_db = psnr(decoded, tex)
+    quality_db = metrics.psnr(tex, decoded)
     if not np.isfinite(quality_db) or quality_db < 30.0:
         raise SystemExit(f"round-trip PSNR {quality_db:.2f} dB is too low")
     texels = tex.shape[0] * 16
@@ -1060,7 +1384,7 @@ def main(argv=None):
         raise SystemExit("decode_bc6hu: alpha is not 1.0")
     src = hdr.view(np.float16)[..., :3].astype(np.float64)
     back = decoded.view(np.float16)[..., :3].astype(np.float64)
-    rmse = float(np.sqrt(np.mean((src - back) ** 2)))
+    rmse = metrics.rmse(src, back)
     # the input is noise, which no 4x4 block format keeps: the bound only
     # says that the blocks decode to the texture they were made from
     if not np.isfinite(back).all() or not rmse < 0.8 * float(src.std()):
@@ -1202,6 +1526,20 @@ def main(argv=None):
         raise SystemExit("a kernel disagrees with its plain version at the "
                          "full width")
 
+    # 7-9. the CLI on the BC7 cell's texture saved as .npy, the block axis
+    # split over three slices of the card, and over processes
+    from convectionkernels_tpu_torch.utils import image as image_util
+    work = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        img = image_util.unblockify(tex, 1024, 1024)
+        img_path = os.path.join(work, "texture.npy")
+        np.save(img_path, img)
+        cli_launched = cli_phase(api, dev, img_path, img, work)
+        sharded_phase(api, dev, tex)
+        distributed_phase(api, dev, img_path, img, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
     if args.profile:
         for label, encode in (("bc7", encode_bc7_full),
                               ("bc6h", encode_bc6h_full),
@@ -1260,6 +1598,7 @@ def main(argv=None):
             plain_ms=plain_ms[name],
             bound_ms=bound, bound_by=bound_by,
             library_ms=None,
+            cli_launches={k: v[name] for k, v in cli_launched.items()},
             ms_alone=sum(alone[name]) if name in alone else None,
             equal=equal[name],
             plain_blocks=plain_blocks[name],

@@ -324,8 +324,8 @@ def encode_eac11(pixels, signed: bool = False, options: Options = Options(),
     """Kernels::EncodeETC2Alpha11 (API.cpp:259-268): one 11-bit channel,
     int16 [N, 16] (clamped to [0, 2047], or [-1023, 1023] when `signed`)
     -> uint8 [N, 8] on `device`. As in the JAX package, [N, P] with P other
-    than 16 is read with clamped pixel indices; a rank other than 2, which
-    the JAX package encodes into an array of another shape, raises."""
+    than 16 is read with clamped pixel indices; a rank other than 2 or a
+    second axis of 0 raises ValueError (the JAX entry point raises too)."""
     del options  # the alpha search has no option
     dev = resolve_device(device)
     values = _cast(pixels, torch.int16)

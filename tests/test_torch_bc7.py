@@ -242,12 +242,17 @@ def test_tables_and_plans_match_jax():
 
 
 _NO_JAX = r"""
+import contextlib
+import io
 import sys
 sys.modules["jax"] = None          # any import of jax now raises
 import torch
 import convectionkernels_tpu_torch as ckt
-from convectionkernels_tpu_torch import (api, convert, cuda_lib,
+from convectionkernels_tpu_torch import (api, cli, convert, cuda_lib,
                                          exact_probe)
+from convectionkernels_tpu_torch.parallel import distributed, sharding
+from convectionkernels_tpu_torch.utils import (containers, image, metrics,
+                                               native)
 from convectionkernels_tpu_torch.models import (bc7, bc7_kernel, decode, etc,
                                                 s3tc)
 from convectionkernels_tpu_torch.tables import etc_tables, s3tc_single_color
@@ -283,6 +288,21 @@ assert ckt.encode_etc2_punchthrough(px, device="cpu").shape == (2, 8)
 values = px[:, :, 0].to(torch.int16)
 assert ckt.encode_eac11(values, device="cpu").shape == (2, 8)
 assert len(s3tc_single_color.load_tables()) == 8
+img = px.reshape(8, 4, 4).numpy()
+blocks = image.blockify(img)
+assert blocks.shape == (2, 16, 4)
+assert sharding.encode_sharded(ckt.encode_bc1, blocks, ["cpu"] * 2).shape \
+    == (2, 8)
+assert distributed.encode_image_distributed(
+    ckt.encode_bc1, img, device="cpu", assemble=True).shape == (2, 8)
+assert metrics.psnr(blocks, blocks) == float("inf")
+assert "bc7" in containers.DXGI_FORMATS and native.available() in (True, False)
+with contextlib.redirect_stdout(io.StringIO()) as usage:
+    assert cli.main([]) == 1
+assert usage.getvalue().startswith("Command-line encoder")
+loaded = [m for m in sys.modules
+          if m == "convectionkernels_tpu" or m.startswith("convectionkernels_tpu.")]
+assert not loaded, loaded
 print("ok")
 """
 
@@ -290,7 +310,7 @@ print("ok")
 def test_port_imports_without_jax():
     """The package imports and runs with jax unimportable, loads nothing of
     the JAX package, and its entry points refuse to run without a card
-    unless the CPU is asked for."""
+    unless the CPU is asked for; so do the CLI, the utils and the split."""
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, "-c", _NO_JAX], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=300)

@@ -495,3 +495,64 @@ def test_card_tensors_cast_as_numpy(card):
             assert got.device.type == "cuda" and got.dtype == dtype
             np.testing.assert_array_equal(
                 got.cpu().numpy(), np.asarray(t.numpy(), dtype=np_dtype))
+
+
+# --- the CLI and the block axis split on the card --------------------------------
+
+def cli_image():
+    """64 x 64 RGBA: 256 blocks of chip_smoke.py's texture."""
+    import chip_smoke
+    from convectionkernels_tpu_torch.utils import image
+    return image.unblockify(chip_smoke.make_texture(seed=0, size=64), 64, 64)
+
+
+@pytest.mark.parametrize("flags", (["-f", "bc7", "-q", "5"], ["-f", "bc1"]),
+                         ids=("bc7_q5", "bc1"))
+def test_cli_on_card_equals_cpu(card, flags, tmp_path, monkeypatch):
+    """The CLI with the card (device=None) writes the file it writes on the
+    CPU; the BC7 run launches each of the three BC7 kernels."""
+    from convectionkernels_tpu_torch import cli
+    src = str(tmp_path / "in.npy")
+    np.save(src, cli_image())
+    bc7_kernel.LAUNCHES.clear()
+    assert cli.main(flags + [src, str(tmp_path / "card.dds")]) == 0
+    launched = {k: bc7_kernel.LAUNCHES[k] for k in PLAIN}
+    assert cli.main(flags + [src, str(tmp_path / "cpu.dds")],
+                    device="cpu") == 0
+    assert (tmp_path / "card.dds").read_bytes() == \
+        (tmp_path / "cpu.dds").read_bytes()
+    if flags[1] == "bc7":
+        assert all(launched.values()), launched
+
+
+def test_encode_sharded_on_card_equals_one_call(card):
+    from convectionkernels_tpu_torch.parallel import sharding
+    px = blockgen.mixed_blocks(203, seed=807)
+    want = ckt.encode_bc1(px, device=card).cpu().numpy()
+    got = sharding.encode_sharded(ckt.encode_bc1, px, [card, card])
+    np.testing.assert_array_equal(got, want)
+
+
+def test_nccl_world_of_one_assembles(card):
+    """A one-rank NCCL group on the card: the assembled bytes, gathered by
+    NCCL, equal one call."""
+    import socket
+
+    import torch.distributed as dist
+
+    from convectionkernels_tpu_torch.parallel import distributed
+    from convectionkernels_tpu_torch.utils import image
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    distributed.initialize(init_method=f"tcp://localhost:{port}",
+                           world_size=1, rank=0)
+    try:
+        assert dist.get_backend() == "nccl"
+        img = cli_image()
+        got = distributed.encode_image_distributed(ckt.encode_bc1, img,
+                                                   assemble=True)
+    finally:
+        dist.destroy_process_group()
+    want = ckt.encode_bc1(image.blockify(img), device=card).cpu().numpy()
+    np.testing.assert_array_equal(got, want)

@@ -219,8 +219,8 @@ def test_tensors_cast_as_numpy():
 def test_inputs_jax_refuses_are_refused():
     """A wrong rank or a second axis other than 16 raises, as in JAX; so
     does a list value that does not fit the entry point's dtype. EAC11
-    refuses a rank other than 2 (the JAX package encodes [N, 16, C] into an
-    array of another shape) and a second axis of 0."""
+    refuses a rank other than 2 and a second axis of 0, as the JAX entry
+    point does (test_eac11_bad_ranks_raise_in_both)."""
     from convectionkernels_tpu import api as jax_api
     px = np.zeros((2, 16, 4), dtype=np.uint8)
     for bad in (px[:, :, 0], px[:, :8], px[:, :, :0]):
@@ -237,6 +237,19 @@ def test_inputs_jax_refuses_are_refused():
             ckt.encode_eac11(bad, device="cpu")
     assert ckt.encode_eac11(px[:0, :, 0], device="cpu").shape == (0, 8)
     assert ckt.encode_etc1(px[:0], device="cpu").shape == (0, 8)
+
+
+def test_eac11_bad_ranks_raise_in_both():
+    """[N, 16, 1] and [N, 0] int16: the JAX entry point raises (TypeError
+    while it traces [N, 16, 1], IndexError on [N, 0]) and so does the
+    port's (ValueError)."""
+    from convectionkernels_tpu import api as jax_api
+    for bad, jax_error in ((np.zeros((4, 16, 1), np.int16), TypeError),
+                           (np.zeros((4, 0), np.int16), IndexError)):
+        with pytest.raises(jax_error):
+            jax_api.encode_eac11(bad)
+        with pytest.raises(ValueError):
+            ckt.encode_eac11(bad, device="cpu")
 
 
 # --- tables and helpers --------------------------------------------------------
