@@ -25,9 +25,11 @@ and processes) on one CUDA card and check them.
                                            # encode_etc2_punchthrough per
                                            # chunk size
     python3 chip_smoke.py --profile        # also profile one full-width encode
-                                           # of each path (BC7, BC6H, BC1,
-                                           # BC3, exhaustive BC1, ETC1, ETC2
-                                           # and ETC2 punchthrough)
+                                           # of each path op by op (BC7,
+                                           # BC6H, BC1, BC3, exhaustive BC1,
+                                           # ETC1, ETC2 and ETC2
+                                           # punchthrough) and the replayed
+                                           # programs of BC7, BC6H, BC1, BC3
     python3 chip_smoke.py --pca-chunks 81,192,243
                                            # also time shape_pca alone for lists
                                            # of these lengths, each chunk forced
@@ -54,7 +56,11 @@ Phases, each printed on its own line; a failed check prints
   5. the full-width runs, each timed with CUDA events (median of 3 after a
      warm-up) with its kernels' launches counted over the main path, and
      then each kernel, launched at the full width, against its plain
-     version on 1,024 of its blocks:
+     version on 1,024 of its blocks. An entry point runs a program of its
+     configuration and bucket (convectionkernels_tpu_torch/programs.py):
+     the warm-up call runs it op by op, the first timed call captures it
+     into a CUDA graph and replays it, the others replay it; the per-launch
+     kernel timings run op by op, under programs.eager():
        - BC7: a 1024x1024 RGBA texture (65,536 blocks) through encode_bc7
          at quality 50 with default Options, decoded back; then
          shape_pca (its RGB and RGBA launches), single_plane_mode_best
@@ -77,7 +83,19 @@ Phases, each printed on its own line; a failed check prints
          transparent pixel recorded); each timed, its peak device memory
          read, and 1,024 of its blocks held byte-equal to the port's CPU
          bytes (no kernel either);
-  6. the CLI (`cli`): the BC7 texture saved as .npy goes through
+  6. the program layer (`programs`): each full-width configuration above
+     op by op and replayed, bytes equal and no new capture, median of 3
+     CUDA-event timings and the peak memory of each; a replayed BC7 q50
+     and BC6H encode counting their kernels' launches, which their graphs
+     hold (`programs_kernels`); every golden of phase 4 twice more through
+     its program, captured and replayed (`programs_goldens`); BC7 q50 at
+     40, 72 and 70,000 blocks, one capture of each bucket
+     (`programs_reuse`); under --profile the device-busy share of the
+     replayed BC7 q50, BC6H, BC1 and BC3 encodes; and, after the other
+     phases, `programs_memory`: BC7 q50 and BC6H captured afresh into one
+     pool and replayed out of capture order, then release_programs()
+     giving the pool back;
+  7. the CLI (`cli`): the BC7 texture saved as .npy goes through
      convectionkernels_tpu_torch.cli on the card: -f bc7 -q 50 to .dds,
      once as `python -m convectionkernels_tpu_torch.cli` in a process of
      its own and once in this one, -f bc6h to .dds, -f etc2 -mips to .ktx
@@ -87,15 +105,15 @@ Phases, each printed on its own line; a failed check prints
      bc6h), each file's header checked against its format's layout, each
      level's payload held against the entry points on the card for that
      level's blocks, and 1,024 blocks against the port on the CPU;
-  7. the split over devices (`sharded`): encode_sharded of BC7 q50 and
+  8. the split over devices (`sharded`): encode_sharded of BC7 q50 and
      of ETC2 punchthrough on the texture over three slices of card 0
      (and over every card when there are several), each byte-equal to
      one call;
-  8. the split over processes (`distributed`): two gloo processes
+  9. the split over processes (`distributed`): two gloo processes
      sharing card 0 and one NCCL process, encode_image_distributed of
      encode_bc1 on the texture, each rank's slice and the gathered whole
      held against one call;
-  9. ptxas's registers, stack and spills of the three redesigned BC7
+ 10. ptxas's registers, stack and spills of the three redesigned BC7
      kernels, one JSON line describing every kernel (bounds from the work
      model below, at the FMA-free issue rate; `launches` from the
      full-width runs, `cli_launches` from each CLI run), the card's name
@@ -107,6 +125,7 @@ Needs the CUDA toolkit (nvcc) and a card; imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import os
 import re
@@ -577,6 +596,64 @@ def etc_chunk_attr(entry):
     return "CHUNK_EAC"
 
 
+def mismatched(got, want) -> int:
+    """Blocks of the card's bytes `got` that differ from `want` (NumPy)."""
+    got = got.cpu().numpy()
+    if got.shape != want.shape:
+        return len(want)
+    return int((got != want).any(axis=1).sum())
+
+
+def golden_cases(api, ckt, testdata, dev, golden_px, golden_blocks,
+                 bc6h_golden):
+    """{family: [(case, a no-argument encode on the card, the stored JAX
+    bytes)]} of every stored golden: the BC7 q50 one, the BC6H, S3TC and
+    ETC ones, each through its entry point and its stored Options."""
+    import numpy as np
+    cases = {"q50": [("q50", lambda: api.encode_bc7(
+        golden_px, quality=50, device=dev), golden_blocks)]}
+    cases["bc6h"] = []
+    for name in sorted(k[:-len("_pixels")] for k in bc6h_golden
+                       if k.endswith("_pixels")):
+        flags, seed_points, refine_rounds, signed = (
+            int(v) for v in bc6h_golden[f"{name}_config"])
+        encode = api.encode_bc6hs if signed else api.encode_bc6hu
+        options = ckt.Options(flags=flags, seed_points=seed_points,
+                              refine_rounds_bc6h=refine_rounds)
+        cases["bc6h"].append((name, functools.partial(
+            encode, bc6h_golden[f"{name}_pixels"], options, device=dev),
+            bc6h_golden[f"{name}_blocks"]))
+    with np.load(os.path.join(testdata, "s3tc_golden.npz")) as z:
+        s3tc_golden = {k: z[k] for k in z.files}
+    cases["s3tc"] = []
+    for name in sorted(k[:-len("_pixels")] for k in s3tc_golden
+                       if k.endswith("_pixels")):
+        flags, threshold, seed_points, rounds_s3tc, rounds_iic = (
+            s3tc_golden[f"{name}_options"].tolist())
+        options = ckt.Options(
+            flags=int(flags), threshold=threshold,
+            seed_points=int(seed_points),
+            refine_rounds_s3tc=int(rounds_s3tc),
+            refine_rounds_iic=int(rounds_iic))
+        cases["s3tc"].append((name, functools.partial(
+            getattr(api, "encode_" + name.split("_")[0]),
+            s3tc_golden[f"{name}_pixels"], options, device=dev),
+            s3tc_golden[f"{name}_blocks"]))
+    with np.load(os.path.join(testdata, "etc_golden.npz")) as z:
+        etc_golden = {k: z[k] for k in z.files}
+    cases["etc"] = []
+    for name in sorted(k[:-len("_pixels")] for k in etc_golden
+                       if k.endswith("_pixels")):
+        entry = str(etc_golden[f"{name}_entry"])
+        cases["etc"].append((name, etc_encoder(
+            api, "encode_eac11" if entry.startswith("eac11")
+            else f"encode_{entry}", etc_golden[f"{name}_pixels"],
+            ckt.Options(flags=int(etc_golden[f"{name}_flags"]),
+                        threshold=float(etc_golden[f"{name}_threshold"])),
+            dev, signed=entry == "eac11s"), etc_golden[f"{name}_blocks"]))
+    return cases
+
+
 def profile_encode(encode, out_path):
     """One full-width encode under torch.profiler: the device's busy time
     by kernel name against the host's wall time for the same encode."""
@@ -930,8 +1007,6 @@ def sharded_phase(api, dev, tex):
     punchthrough over three slices of one card (65,536 blocks, not a
     multiple of 3), and over every card when there is more than one, each
     byte-equal to one call."""
-    import functools
-
     import torch
 
     from convectionkernels_tpu_torch.parallel import sharding
@@ -1052,6 +1127,172 @@ def distributed_phase(api, dev, img_path, img, work):
                              f"process(es) differs from one call")
 
 
+# --- the program layer: CUDA graphs of each configuration and bucket ----------
+
+# the kernel launches a replayed one-chunk encode must count, and must have
+# been captured into its graph
+GRAPH_LAUNCHES = {"bc7_q50": ("bc7_kernel", {"shape_pca": 2,
+                                             "single_plane_mode_best": 6,
+                                             "dual_plane_best": 1}),
+                  "bc6hu": ("bc6h_kernel", {BC6H_KERNEL: 6})}
+PROFILED_REPLAYS = ("bc7_q50", "bc6hu", "bc1", "bc3")
+
+
+def captures(programs):
+    """The captures of each bucket of every program the caches hold."""
+    return [b.captures for p in programs.programs() for b in p.buckets.values()]
+
+
+def programs_phase(api, ckt, programs, dev, encoders, goldens, tex_dev,
+                   kernel_modules, profile, out_dir):
+    """The `programs` phase. Every full-width configuration, whose program
+    the full-width phases captured (their second call), op by op under
+    programs.eager() and replayed: bytes equal, no new capture, median of 3
+    CUDA-event timings and peak memory each; the kernels' launches counted
+    on a replay and held by the graph; every golden through its program
+    twice more (a capture where the golden phase left only the eager first
+    call, then a replay), each call equal to the golden; one capture of
+    bc7_q50 across 40 and 72 blocks (one bucket) and across 65,536 and
+    70,000 blocks (the chunk program, run twice for 70,000). Returns the
+    eager bytes of bc7_q50 and bc6hu."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    phase("programs_pool", programs=len(programs.programs()),
+          buckets=len(captures(programs)), captured=sum(captures(programs)),
+          allocated_gib=torch.cuda.memory_allocated(dev) / 2**30,
+          reserved_gib=torch.cuda.memory_reserved(dev) / 2**30)
+    eager_bytes = {}
+    for name, encode in encoders.items():
+        torch.cuda.synchronize()
+        with programs.eager():
+            torch.cuda.reset_peak_memory_stats(dev)
+            eager_ms, eager_out = timed(encode)
+            eager_peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        # the op-by-op runs' cached blocks, which no graph needs
+        torch.cuda.empty_cache()
+        before = captures(programs)
+        torch.cuda.reset_peak_memory_stats(dev)
+        replay_ms, replay_out = timed(encode)
+        replay_peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        equal = torch.equal(eager_out, replay_out)
+        new = sum(captures(programs)) - sum(before)
+        e, r = statistics.median(eager_ms), statistics.median(replay_ms)
+        phase("programs", config=name, eager_ms=eager_ms, replayed_ms=replay_ms,
+              eager_ms_median=e, replayed_ms_median=r, eager_over_replayed=e / r,
+              eager_peak_gib=eager_peak, replayed_peak_gib=replay_peak,
+              reserved_gib=torch.cuda.memory_reserved(dev) / 2**30,
+              new_captures=new, bytes_equal=equal)
+        if not equal or new:
+            raise SystemExit(f"programs: {name}'s replayed bytes differ from "
+                             f"its eager bytes ({not equal}) or its replays "
+                             f"captured again ({new})")
+        if name in GRAPH_LAUNCHES:
+            eager_bytes[name] = eager_out
+        del eager_out, replay_out
+
+    in_graphs = {}
+    graph_programs = {
+        "bc7_q50": api._bc7_program(ckt.Options(), ckt.plan_from_quality(50),
+                                    tex_dev.device),
+        "bc6hu": api._bc6h_program(ckt.Options(), False, tex_dev.device)}
+    for name, (module, need) in GRAPH_LAUNCHES.items():
+        counter = kernel_modules[module].LAUNCHES
+        torch.cuda.synchronize()
+        counter.clear()
+        encoders[name]()
+        torch.cuda.synchronize()
+        counted = {k: counter[k] for k in need}
+        (bucket,) = [b for key, b in graph_programs[name].buckets.items()
+                     if key[0] == tex_dev.shape[0]]
+        held = {k: n[k] for c, n in bucket.launched if c is counter
+                for k in need}
+        in_graphs[name] = dict(counted=counted, held_by_graph=held)
+        if counted != need or held != need:
+            raise SystemExit(f"programs: a replayed {name} encode counted "
+                             f"{counted} launches and its graphs hold {held}, "
+                             f"not {need}")
+    phase("programs_kernels", launches=in_graphs)
+
+    bad, calls = {}, 0
+    for family, cases in goldens.items():
+        for name, call, want in cases:
+            for run in ("second", "third"):
+                calls += 1
+                m = mismatched(call(), want)
+                if m:
+                    bad[f"{family}/{name}/{run}"] = m
+    most = max(captures(programs))
+    phase("programs_goldens", cases=sum(len(c) for c in goldens.values()),
+          calls=calls, mismatched_blocks=bad,
+          programs=len(programs.programs()), buckets=len(captures(programs)),
+          most_captures_of_a_bucket=most)
+    if bad or most != 1:
+        raise SystemExit(f"programs: goldens through captured programs differ "
+                         f"({bad}) or a bucket was captured {most} times")
+
+    program = api._bc7_program(ckt.Options(), ckt.plan_from_quality(50),
+                               tex_dev.device)
+    reuse = {}
+    with programs.eager():
+        want = api.encode_bc7(tex_dev[:72], quality=50, device=dev)
+    for n in (40, 72, 40, 72):
+        got = api.encode_bc7(tex_dev[:n], quality=50, device=dev)
+        reuse[f"{n}_equal"] = reuse.get(f"{n}_equal", True) and \
+            torch.equal(got, want[:n])
+    wide = torch.cat([tex_dev, tex_dev[:70000 - tex_dev.shape[0]]])
+    got = api.encode_bc7(wide, quality=50, device=dev)
+    full = eager_bytes["bc7_q50"]
+    reuse["70000_equal"] = torch.equal(got, torch.cat(
+        [full, full[:70000 - full.shape[0]]]))
+    reuse["captures"] = {str(k[0]): b.captures
+                         for k, b in program.buckets.items()}
+    phase("programs_reuse", **reuse)
+    if not all(v for k, v in reuse.items() if k.endswith("_equal")) or \
+            reuse["captures"].get("256") != 1 or \
+            reuse["captures"].get(str(tex_dev.shape[0])) != 1:
+        raise SystemExit(f"programs: bc7_q50 at 40, 72 and 70,000 blocks: "
+                         f"{reuse}")
+
+    if profile:
+        for name in PROFILED_REPLAYS:
+            prof = profile_encode(encoders[name], os.path.join(
+                out_dir, f"profile_replayed_{name}.txt"))
+            phase(f"profile_replayed_{name}", wall_ms=prof["wall_ms"],
+                  device_busy_ms=prof["device_busy_ms"],
+                  busy_share=prof["device_busy_ms"] / prof["wall_ms"],
+                  device_launches=prof["device_launches"],
+                  top=prof["top"][:8])
+    return eager_bytes
+
+
+def programs_memory_phase(programs, dev, encoders, eager_bytes):
+    """The `programs_memory` phase: after release_programs(), bc7_q50 (A)
+    and bc6hu (B) at the full width, each called once op by op and once
+    captured (A before B, in the one shared pool), then replayed out of
+    capture order (A, B, A, B, B, A), each call equal to its eager bytes;
+    then release_programs() must give the pool back."""
+    import torch
+    programs.release_programs()
+    order = ["bc7_q50", "bc6hu"] * 2 + ["bc7_q50", "bc6hu", "bc7_q50",
+                                        "bc6hu", "bc6hu", "bc7_q50"]
+    bad = [i for i, name in enumerate(order)
+           if not torch.equal(encoders[name](), eager_bytes[name])]
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_reserved(dev)
+    graphs = captures(programs)
+    programs.release_programs()
+    left = torch.cuda.memory_reserved(dev)
+    phase("programs_memory", order=order, mismatched_calls=bad,
+          captures=graphs, reserved_gib_with_programs=held / 2**30,
+          reserved_gib_after_release=left / 2**30)
+    if bad or graphs != [1, 1] or not left < held:
+        raise SystemExit(f"programs_memory: calls {bad} differ from the "
+                         f"eager bytes, captures {graphs}, or "
+                         f"release_programs() kept the pool ({held} -> "
+                         f"{left} bytes reserved)")
+
+
 # --- main ----------------------------------------------------------------------
 
 def main(argv=None):
@@ -1098,7 +1339,8 @@ def main(argv=None):
     import numpy as np
 
     import convectionkernels_tpu_torch as ckt
-    from convectionkernels_tpu_torch import api, cuda_lib, exact_probe
+    from convectionkernels_tpu_torch import (api, cuda_lib, exact_probe,
+                                             programs)
     from convectionkernels_tpu_torch.models import (bc6h, bc6h_kernel, bc7,
                                                     bc7_kernel, etc)
     from convectionkernels_tpu_torch.utils import metrics
@@ -1200,74 +1442,26 @@ def main(argv=None):
         raise SystemExit("a kernel disagrees with its plain version")
 
     # 4. the port's bytes against the JAX package's goldens
-    got = api.encode_bc7(golden_px, quality=50, device=dev).cpu().numpy()
-    bad = int((got != golden_blocks).any(axis=1).sum())
-    phase("golden_q50", blocks=len(golden_px), mismatched_blocks=bad)
-    if bad:
-        raise SystemExit(f"{bad} of {len(golden_px)} blocks differ from the "
-                         f"JAX package's q50 golden")
-    bad_cases = {}
-    n_golden = 0
-    for name in sorted(k[:-len("_pixels")] for k in bc6h_golden
-                       if k.endswith("_pixels")):
-        flags, seed_points, refine_rounds, signed = (
-            int(v) for v in bc6h_golden[f"{name}_config"])
-        encode = api.encode_bc6hs if signed else api.encode_bc6hu
-        got = encode(bc6h_golden[f"{name}_pixels"], ckt.Options(
-            flags=flags, seed_points=seed_points,
-            refine_rounds_bc6h=refine_rounds), device=dev).cpu().numpy()
-        bad_cases[name] = int(
-            (got != bc6h_golden[f"{name}_blocks"]).any(axis=1).sum())
-        n_golden += len(got)
-    phase("golden_bc6h", blocks=n_golden, mismatched_blocks=bad_cases)
-    if any(bad_cases.values()):
-        raise SystemExit(f"blocks differ from the JAX package's BC6H "
-                         f"goldens: {bad_cases}")
-    with np.load(os.path.join(testdata, "s3tc_golden.npz")) as z:
-        s3tc_golden = {k: z[k] for k in z.files}
-    bad_cases = {}
-    n_golden = 0
-    for name in sorted(k[:-len("_pixels")] for k in s3tc_golden
-                       if k.endswith("_pixels")):
-        flags, threshold, seed_points, rounds_s3tc, rounds_iic = (
-            s3tc_golden[f"{name}_options"].tolist())
-        encode = getattr(api, "encode_" + name.split("_")[0])
-        got = encode(s3tc_golden[f"{name}_pixels"], ckt.Options(
-            flags=int(flags), threshold=threshold,
-            seed_points=int(seed_points),
-            refine_rounds_s3tc=int(rounds_s3tc),
-            refine_rounds_iic=int(rounds_iic)), device=dev)
-        bad_cases[name] = int(
-            (got.cpu().numpy() != s3tc_golden[f"{name}_blocks"]).any(
-                axis=1).sum())
-        n_golden += got.shape[0]
-    phase("golden_s3tc", blocks=n_golden, cases=len(bad_cases),
-          mismatched_blocks=bad_cases)
-    if any(bad_cases.values()):
-        raise SystemExit(f"blocks differ from the JAX package's S3TC "
-                         f"goldens: {bad_cases}")
-    with np.load(os.path.join(testdata, "etc_golden.npz")) as z:
-        etc_golden = {k: z[k] for k in z.files}
-    bad_cases = {}
-    n_golden = 0
-    for name in sorted(k[:-len("_pixels")] for k in etc_golden
-                       if k.endswith("_pixels")):
-        entry = str(etc_golden[f"{name}_entry"])
-        got = etc_encoder(
-            api, "encode_eac11" if entry.startswith("eac11")
-            else f"encode_{entry}", etc_golden[f"{name}_pixels"],
-            ckt.Options(flags=int(etc_golden[f"{name}_flags"]),
-                        threshold=float(etc_golden[f"{name}_threshold"])),
-            dev, signed=entry == "eac11s")()
-        bad_cases[name] = int(
-            (got.cpu().numpy() != etc_golden[f"{name}_blocks"]).any(
-                axis=1).sum())
-        n_golden += got.shape[0]
-    phase("golden_etc", blocks=n_golden, cases=len(bad_cases),
-          mismatched_blocks=bad_cases)
-    if any(bad_cases.values()):
-        raise SystemExit(f"blocks differ from the JAX package's ETC "
-                         f"goldens: {bad_cases}")
+    goldens = golden_cases(api, ckt, testdata, dev, golden_px, golden_blocks,
+                           bc6h_golden)
+    for family, cases in goldens.items():
+        bad_cases = {name: mismatched(call(), want)
+                     for name, call, want in cases}
+        n_golden = sum(len(want) for _, _, want in cases)
+        if family == "q50":
+            bad = bad_cases["q50"]
+            phase("golden_q50", blocks=n_golden, mismatched_blocks=bad)
+            if bad:
+                raise SystemExit(f"{bad} of {n_golden} blocks differ from "
+                                 f"the JAX package's q50 golden")
+            continue
+        fields = dict(blocks=n_golden)
+        if family != "bc6h":
+            fields["cases"] = len(bad_cases)
+        phase(f"golden_{family}", **fields, mismatched_blocks=bad_cases)
+        if any(bad_cases.values()):
+            raise SystemExit(f"blocks differ from the JAX package's "
+                             f"{family.upper()} goldens: {bad_cases}")
 
     # 5a. the BC7 full-width run: 65,536 blocks, q50, default options
     tex = make_texture(seed=0)
@@ -1301,9 +1495,15 @@ def main(argv=None):
           mtexels_per_s=texels / (ms * 1e-3) / 1e6, psnr_db=quality_db,
           launches=launches)
 
-    # per-kernel device time at the full-width shapes (one more encode)
-    with Instrument(bc7_kernel, BC7_KERNELS, with_plain=False,
-                    capture=ALONE_KERNELS) as full_run:
+    # per-kernel device time at the full-width shapes (one more encode, op
+    # by op: a replayed graph calls no wrapper), after one op-by-op encode
+    # that refills the allocator's cache, which the capture emptied: a
+    # cudaMalloc of a launch's outputs would fall inside its events
+    with programs.eager():
+        encode_bc7_full()
+    with programs.eager(), Instrument(bc7_kernel, BC7_KERNELS,
+                                      with_plain=False,
+                                      capture=ALONE_KERNELS) as full_run:
         encode_bc7_full()
         torch.cuda.synchronize()
     detail["full_width_launches"] = full_run.detail_ms()
@@ -1346,8 +1546,10 @@ def main(argv=None):
 
     # each kernel launched at the full width against its plain version on
     # the same inputs, for 1,024 blocks spread over the texture
-    with Instrument(bc7_kernel, BC7_KERNELS, with_plain=True,
-                    plain_stride=tex.shape[0] // 1024) as wide:
+    with programs.eager(), Instrument(bc7_kernel, BC7_KERNELS,
+                                      with_plain=True,
+                                      plain_stride=tex.shape[0] // 1024) \
+            as wide:
         encode_bc7_full()
         torch.cuda.synchronize()
     detail["small_launches"] = small_run.detail_ms()
@@ -1390,8 +1592,10 @@ def main(argv=None):
     if not np.isfinite(back).all() or not rmse < 0.8 * float(src.std()):
         raise SystemExit(f"BC6H round trip: RMSE {rmse} against a source "
                          f"spread of {src.std()}")
-    with Instrument(bc6h_kernel, (BC6H_KERNEL,),
-                    with_plain=False) as full_bc6h:
+    with programs.eager():
+        encode_bc6h_full()      # refills the allocator's cache, as for BC7
+    with programs.eager(), Instrument(bc6h_kernel, (BC6H_KERNEL,),
+                                      with_plain=False) as full_bc6h:
         encode_bc6h_full()
         torch.cuda.synchronize()
     per_group = {}
@@ -1405,8 +1609,10 @@ def main(argv=None):
           launches=launches[BC6H_KERNEL], kernel_ms=kernel_ms,
           kernel_ms_per_launch=kernel_ms / launches[BC6H_KERNEL],
           kernel_ms_by_aprec=per_group)
-    with Instrument(bc6h_kernel, (BC6H_KERNEL,), with_plain=True,
-                    plain_stride=hdr.shape[0] // 1024) as wide_bc6h:
+    with programs.eager(), Instrument(bc6h_kernel, (BC6H_KERNEL,),
+                                      with_plain=True,
+                                      plain_stride=hdr.shape[0] // 1024) \
+            as wide_bc6h:
         encode_bc6h_full()
         torch.cuda.synchronize()
     detail["full_width_bc6h_launches"] = full_bc6h.detail
@@ -1526,6 +1732,15 @@ def main(argv=None):
         raise SystemExit("a kernel disagrees with its plain version at the "
                          "full width")
 
+    # 6b. the program layer: eager against replayed at the full width, the
+    # goldens through captured programs, reuse of a bucket
+    encoders = {"bc7_q50": encode_bc7_full, "bc6hu": encode_bc6h_full,
+                **s3tc_encoders, **etc_encoders}
+    eager_bytes = programs_phase(
+        api, ckt, programs, dev, encoders, goldens, tex_dev,
+        {"bc7_kernel": bc7_kernel, "bc6h_kernel": bc6h_kernel}, args.profile,
+        args.out)
+
     # 7-9. the CLI on the BC7 cell's texture saved as .npy, the block axis
     # split over three slices of the card, and over processes
     from convectionkernels_tpu_torch.utils import image as image_util
@@ -1545,8 +1760,9 @@ def main(argv=None):
                               ("bc6h", encode_bc6h_full),
                               *((k, s3tc_encoders[k]) for k in S3TC_PROFILED),
                               *((k, etc_encoders[k]) for k in ETC_PROFILED)):
-            prof = profile_encode(encode, os.path.join(
-                args.out, f"profile_{label}.txt"))
+            with programs.eager():
+                prof = profile_encode(encode, os.path.join(
+                    args.out, f"profile_{label}.txt"))
             detail[f"profile_{label}"] = prof
             phase(f"profile_{label}", wall_ms=prof["wall_ms"],
                   device_busy_ms=prof["device_busy_ms"],
@@ -1566,7 +1782,6 @@ def main(argv=None):
                             encode_bc6h_full, dev)
         phase("chunk_sweep_bc6h", results=sweep)
         detail["chunk_sweep_bc6h"] = sweep
-    encoders = {**s3tc_encoders, **etc_encoders}
     for attr, option, phase_name, names in (
             ("CHUNK_S3TC", args.chunks_s3tc, "chunk_sweep_s3tc",
              ("bc1", "bc3")),
@@ -1584,6 +1799,10 @@ def main(argv=None):
                                 encoders[name], dev)
             phase(phase_name, config=name, results=sweep)
             detail[f"chunk_sweep_{name}"] = sweep
+
+    # the two kernels' programs replayed out of capture order, and the pool
+    # given back
+    programs_memory_phase(programs, dev, encoders, eager_bytes)
 
     # 6. the kernels line, the card, and the result
     kernels = []

@@ -23,6 +23,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import programs
 from ..ops import lanes, pca
 from ..options import Flags
 from ..tables import bc6h_layout
@@ -82,7 +83,7 @@ def pca_lines(pix, cw):
         for px in range(16):
             masks[part * 2 + ((bits >> px) & 1), px] = True
     masks[64, :] = True
-    member = [torch.as_tensor(masks[:, px][None, :], device=dev)
+    member = [programs.constant(masks[:, px][None, :], dev)
               for px in range(16)]
     weights = [m.to(F32) for m in member]
     pw = [[lanes.to_float(pix[:, px * 3 + ch]).unsqueeze(1) * cw[ch]
@@ -121,8 +122,8 @@ def pack(pixels_f16bits, flags: int, channel_weights, is_signed: bool,
         num_parts = 32 if partitioned else 1
         if partitioned:
             # rows are subset-major (q = s*32 + p): columns 2p, then 2p+1
-            cols = torch.as_tensor(
-                [2 * p + s for s in range(2) for p in range(32)], device=dev)
+            cols = programs.constant(
+                [2 * p + s for s in range(2) for p in range(32)], dev)
             base = torch.stack([b[:, cols] for b in ufep_base], dim=1)
             offset = torch.stack([o[:, cols] for o in ufep_offset], dim=1)
             err, valid, eps, idx = bc6h_kernel.partitioned_group_meta_rounds(
@@ -315,14 +316,14 @@ def _pack_bits(best, n):
     # (subset 0 ep 0), (subset 0 ep 1), (subset 1 ep 0), (subset 1 ep 1)
     fields = torch.cat([mode_ids[:, None], partition[:, None],
                         eps.permute(0, 3, 1, 2).reshape(n, 12)], dim=1)
-    fld, src, dst, length = (torch.as_tensor(_LAYOUT[k], device=dev)[mode_l]
+    fld, src, dst, length = (programs.constant(_LAYOUT[k], dev)[mode_l]
                              for k in range(4))             # [N,E]
     chunk = ((fields.gather(1, fld.long()) >> src)
              & ((torch.ones_like(length) << length) - 1))
     words = _scatter_bits(chunk, dst, length)
 
-    partitioned = torch.as_tensor([m[1] for m in HDR_MODES],
-                                  device=dev)[mode_l]
+    partitioned = programs.constant([m[1] for m in HDR_MODES],
+                                    dev)[mode_l]
     header_bits = torch.where(partitioned, bc6h_layout.HEADER_BITS_PARTITIONED,
                               bc6h_layout.HEADER_BITS_SINGLE).to(I32)[:, None]
     index_bits = torch.where(partitioned, 3, 4).to(I32)[:, None]

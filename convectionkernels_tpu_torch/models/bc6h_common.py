@@ -16,6 +16,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import programs
 from ..ops import lanes
 from ..ops.exact_math import exact_divide
 from ..ops.index_select import WEIGHT_RECIPROCALS
@@ -163,12 +164,12 @@ def meta_round_chain(pix, base, offset, aprec, is_signed, fast_indexing,
     pw = [f2cl[ch] * cw[ch] for ch in range(3)]
     member_px = [member[:, px].unsqueeze(0) for px in range(16)]  # [1,Q]
     fix_col = fixups.view(1, 1, q_count).expand(n, 1, q_count)
-    weights = torch.as_tensor(
-        [index_weight(r, index_range) for r in range(index_range)],
-        dtype=I32, device=dev).view(1, index_range, 1)
+    weights = programs.constant(
+        [index_weight(r, index_range) for r in range(index_range)], dev,
+        np.int32).view(1, index_range, 1)
     zero_f = torch.zeros((n, q_count), dtype=F32, device=dev)
     zero_s = torch.zeros((), dtype=F32, device=dev)
-    swap = torch.as_tensor([3, 4, 5, 0, 1, 2], device=dev)
+    swap = programs.constant([3, 4, 5, 0, 1, 2], dev)
 
     errs, valids, epss, idxs = [], [], [], []
     refiner = None

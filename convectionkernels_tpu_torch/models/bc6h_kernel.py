@@ -28,13 +28,12 @@ Reference: ConvectionKernels_BC67.cpp:2776-2911.
 
 from __future__ import annotations
 
-import collections
 import ctypes
 
 import numpy as np
 import torch
 
-from .. import cuda_lib
+from .. import cuda_lib, programs
 from ..ops import lanes
 from ..tables import bc7_geometry as geom
 from . import bc6h_common
@@ -43,8 +42,9 @@ from .bc7_kernel import _check_tensor
 Q = 64            # (partition, subset) rows of a partitioned group
 INDEX_RANGE = 8   # 3-bit indexes
 
-# Launches of the CUDA kernel, counted where the wrapper launches it.
-LAUNCHES: collections.Counter = collections.Counter()
+# Launches of the CUDA kernel, counted where the wrapper launches it (and
+# by a program's replay, for the launches its graph holds).
+LAUNCHES = programs.launch_counter()
 
 F32, I32 = torch.float32, torch.int32
 
@@ -154,6 +154,6 @@ def partitioned_group_meta_rounds_plain(pix, base, offset, aprec, is_signed,
         pix, [base[:, ch] for ch in range(3)],
         [offset[:, ch] for ch in range(3)], aprec, is_signed, fast_indexing,
         uniform, cw, num_tweak_rounds, num_refine_rounds, INDEX_RANGE,
-        torch.as_tensor(SUBSET_MEMBER, device=dev),
-        torch.as_tensor(SUBSET_FIXUPS, device=dev))
+        programs.constant(SUBSET_MEMBER, dev),
+        programs.constant(SUBSET_FIXUPS, dev))
     return err, valid, eps, pack_indexes(idx)

@@ -19,6 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import programs
 from ..bc7_plan import BC7EncodingPlan
 from ..ops import lanes
 from ..ops.index_select import IndexSelector
@@ -33,7 +34,8 @@ I32, F32 = torch.int32, torch.float32
 
 
 def _i32(values, device):
-    return torch.as_tensor(np.asarray(values, dtype=np.int32), device=device)
+    """An int32 constant on `device` (programs.constant)."""
+    return programs.constant(values, device, np.int32)
 
 
 # --- Lexicographic best tracking ---------------------------------------------
@@ -105,7 +107,7 @@ def _single_plane_kernel_best(mode, pix, base, offset, seeds, parity_max,
     err, rank, pk0, pk1 = bc7_kernel.single_plane_mode_best(
         mode, pix, base.contiguous(), offset.contiguous(),
         alpha_s.contiguous(), pti, _i32(lane_i, dev),
-        torch.as_tensor(tweakf, device=dev), c_max, cfg, cw,
+        programs.constant(tweakf, dev), c_max, cfg, cw,
         num_refine_rounds)
     return LexBest(err, rank, {"eppk0": pk0, "eppk1": pk1}), c_max
 
@@ -152,10 +154,9 @@ def try_single_plane(pix, pixels, float_pixels, channel_weights, flags,
     # (SinglePlaneTemporaries is stack garbage, BC67.cpp:803-812, expand at
     # :1142); under the zero-initialized oracle build this is a zero UFEP
     # (base=offset=0, alpha filled 255 by ExpandTo). Replicate that.
-    missing = torch.as_tensor(rgba_from_rgb_cols < 0, device=dev)[None, :,
-                                                                  None]
-    safe_cols = torch.as_tensor(np.maximum(rgba_from_rgb_cols, 0),
-                                dtype=torch.long, device=dev)
+    missing = programs.constant(rgba_from_rgb_cols < 0, dev)[None, :, None]
+    safe_cols = programs.constant(np.maximum(rgba_from_rgb_cols, 0), dev,
+                                  np.int64)
     zero = torch.zeros((), dtype=F32, device=dev)
     exp_b = torch.where(missing, zero, rgb_base[:, safe_cols])
     exp_o = torch.where(missing, zero, rgb_offset[:, safe_cols])
@@ -201,8 +202,7 @@ def try_single_plane(pix, pixels, float_pixels, channel_weights, flags,
             src_ids, src_base, src_offset = rgba_ids, rgba_base, rgba_offset
         col_of = np.full(243, 0, dtype=np.int32)
         col_of[src_ids] = np.arange(len(src_ids))
-        cols = torch.as_tensor(col_of[shape_ids], dtype=torch.long,
-                               device=dev)
+        cols = programs.constant(col_of[shape_ids], dev, np.int64)
         base = src_base[:, cols]
         offset = src_offset[:, cols]
 
@@ -291,7 +291,7 @@ def _try_single_color(best, pixels, cw_sq, uniform, masks, alpha_s, is_rgb,
     recon = [0, 0, 0, 255]
     agg = [torch.zeros((n, w_cols), dtype=I32, device=dev) for _ in range(4)]
     for px in range(16):
-        m = torch.as_tensor(masks_w[:, px], device=dev)[None, :]
+        m = programs.constant(masks_w[:, px], dev)[None, :]
         for ch in range(num_real_channels):
             sq = lanes.sq_diff_int(recon[ch], pixels[px][ch][:, None])
             agg[ch] = agg[ch] + torch.where(m, sq, torch.zeros_like(sq))
@@ -360,7 +360,7 @@ def _combine_partitions(mode, mode_pos, best, shape_ids, plan, n, has_alpha,
 
     table = np.asarray([[col_of[s] for s in shapes_of(p)] for p in parts],
                        dtype=np.int64)  # [parts, subsets]
-    cols_t = torch.as_tensor(table, device=dev)
+    cols_t = programs.constant(table, dev)
     total_error = best.error[:, cols_t[:, 0]]
     for k in range(1, num_subsets):
         total_error = total_error + best.error[:, cols_t[:, k]]
@@ -396,7 +396,7 @@ def _combine_partitions(mode, mode_pos, best, shape_ids, plan, n, has_alpha,
         pmap = _lut(geom.PARTITION_MAP_2, win_part)
         owner = [(pmap >> px) & 1 for px in range(16)]
     else:
-        pmap = torch.as_tensor(geom.PARTITION_MAP_3, device=dev)[
+        pmap = programs.constant(geom.PARTITION_MAP_3, dev)[
             win_part.long()]
         owner = [((pmap >> (2 * px)) & 3).to(I32) for px in range(16)]
 
@@ -446,9 +446,10 @@ def _dual_plane_kernel_candidates(pix, channel_weights, flags,
     ci, cf = bc7_kernel.dual_plane_consts(
         combos, [np.float32(w) for w in channel_weights])
     out = bc7_kernel.dual_plane_best(
-        pix, torch.as_tensor(ci, device=dev), torch.as_tensor(cf, device=dev),
+        pix, programs.constant(ci, dev), programs.constant(cf, dev),
         num_refine_rounds, bool(flags & Flags.UNIFORM),
-        bool(flags & Flags.BC7_FAST_INDEXING))
+        bool(flags & Flags.BC7_FAST_INDEXING),
+        bc7_kernel.dual_plane_work(ci, cf, dev))
     q_count = len(combos)
 
     def reduce4(err, rank, payload):
@@ -648,7 +649,7 @@ def _pack_mode_bits(mode: int, work, n):
             pmap = _lut(geom.PARTITION_MAP_2, partition)
             owner = [(pmap >> px) & 1 for px in range(16)]
         elif num_subsets == 3:
-            pmap = torch.as_tensor(geom.PARTITION_MAP_3, device=dev)[
+            pmap = programs.constant(geom.PARTITION_MAP_3, dev)[
                 partition.long()]
             owner = [((pmap >> (2 * px)) & 3).to(I32) for px in range(16)]
         else:

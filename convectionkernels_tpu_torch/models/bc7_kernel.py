@@ -20,14 +20,12 @@ Reference: ConvectionKernels_BC67.cpp:1042-1965.
 
 from __future__ import annotations
 
-import collections
 import ctypes
-import functools
 
 import numpy as np
 import torch
 
-from .. import cuda_lib
+from .. import cuda_lib, programs
 from ..ops import lanes, pca
 from ..ops.index_select import WEIGHT_RECIPROCALS, IndexSelector
 from ..ops.refine import EndpointRefiner
@@ -36,8 +34,9 @@ from . import bc7_common
 BIG_RANK = 2**30
 INF = float("inf")
 
-# Launches of each CUDA kernel, counted where the wrapper launches it.
-LAUNCHES: collections.Counter = collections.Counter()
+# Launches of each CUDA kernel, counted where the wrapper launches it (and
+# by a program's replay, for the launches its graph holds).
+LAUNCHES = programs.launch_counter()
 
 F32, I32 = torch.float32, torch.int32
 
@@ -429,21 +428,26 @@ def dual_plane_order(ci, cf):
     return order, int(live.sum()), len(slots)
 
 
-@functools.lru_cache(maxsize=16)
-def _dual_plane_order_on(ci_bytes, cf_bytes, k_len, device):
-    """dual_plane_order of the constants with these bytes, on `device`."""
-    ci = np.frombuffer(ci_bytes, dtype=np.int32).reshape(_CI_ROWS, k_len)
-    cf = np.frombuffer(cf_bytes, dtype=np.float32).reshape(_CF_ROWS, k_len)
+def dual_plane_work(ci, cf, device):
+    """The kernel's work order of the host lane constants ci, cf
+    (dual_plane_consts): (order on `device`, a programs.constant, n_live,
+    n_rot), the trailing argument of dual_plane_best."""
     order, n_live, n_rot = dual_plane_order(ci, cf)
-    return torch.as_tensor(order, device=device), n_live, n_rot
+    return programs.constant(order, device), n_live, n_rot
 
 
 _DUAL_KEYS = ("rgb_err", "rgb_rank", "rgb_ep", "rgb_idx", "a_err", "a_rank",
               "a_ep", "a_idx")
 
 
-def dual_plane_best(pix, ci, cf, num_refine_rounds, uniform, fast_indexing):
+def dual_plane_best(pix, ci, cf, num_refine_rounds, uniform, fast_indexing,
+                    work):
     """TryDualPlane for every live lane (see dual_plane_consts).
+
+    `work` is dual_plane_work of the host constants that ci and cf were
+    made from: the kernel's work order comes from the host, since reading
+    ci and cf back would wait for the card (and a graph cannot capture
+    it). The plain version ignores it.
 
     Returns a dict: rgb_err, a_err [N, L] f32; rgb_rank, a_rank [N, L]
     int32; rgb_ep [N, 6, L], a_ep [N, 2, L], rgb_idx, a_idx [N, 16, L]
@@ -451,7 +455,7 @@ def dual_plane_best(pix, ci, cf, num_refine_rounds, uniform, fast_indexing):
     """
     if pix.device.type == "cpu":
         return dual_plane_best_plain(pix, ci, cf, num_refine_rounds,
-                                     uniform, fast_indexing)
+                                     uniform, fast_indexing, work)
     n, k_len = pix.shape[0], ci.shape[1]
     dev = pix.device
     _check_tensor("pix", pix, I32, (n, 64), dev)
@@ -466,10 +470,7 @@ def dual_plane_best(pix, ci, cf, num_refine_rounds, uniform, fast_indexing):
         a_rank=torch.empty((n, k_len), dtype=I32, device=dev),
         a_ep=torch.empty((n, 2, k_len), dtype=I32, device=dev),
         a_idx=torch.empty((n, 16, k_len), dtype=I32, device=dev))
-    # the work order, derived on the host once per plan (the copy of the
-    # constants back waits for the card)
-    order, n_live, n_rot = _dual_plane_order_on(
-        ci.cpu().numpy().tobytes(), cf.cpu().numpy().tobytes(), k_len, dev)
+    order, n_live, n_rot = work
     fn = cuda_lib.function("dual_plane")
     code = fn(pix.data_ptr(), ci.data_ptr(), cf.data_ptr(), order.data_ptr(),
               n, k_len, n_live, n_rot, max(num_refine_rounds, 1),
@@ -481,7 +482,7 @@ def dual_plane_best(pix, ci, cf, num_refine_rounds, uniform, fast_indexing):
 
 
 def dual_plane_best_plain(pix, ci, cf, num_refine_rounds, uniform,
-                          fast_indexing):
+                          fast_indexing, work):
     """Plain PyTorch version of dual_plane_best (same signature)."""
     num_refine_rounds = max(num_refine_rounds, 1)
     n, k_len = pix.shape[0], ci.shape[1]

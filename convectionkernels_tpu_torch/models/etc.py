@@ -33,6 +33,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from .. import programs
 from ..ops import lanes
 from ..ops.exact_math import exact_divide, exact_sqrt
 from ..options import Flags, Options
@@ -61,7 +62,8 @@ def _f32(v):
 
 
 def _i32(a, device):
-    return torch.as_tensor(np.asarray(a, dtype=np.int32), device=device)
+    """An int32 constant on `device` (programs.constant)."""
+    return programs.constant(a, device, np.int32)
 
 
 def _weights(options: Options):
@@ -107,7 +109,7 @@ def recon_terms(recon, options: Options):
         return convert_to_fake_bt709(r)
     if options.flags & Flags.UNIFORM:
         return r
-    w = torch.tensor(_weights(options), dtype=F32, device=recon.device)
+    w = programs.constant(_weights(options), recon.device, np.float32)
     return r * _channel_view(w, r.dim())
 
 
@@ -140,7 +142,7 @@ def extract_blocks(pixels_u8, options: Options):
     elif options.flags & Flags.UNIFORM:
         pw = p
     else:
-        w = torch.tensor(_weights(options), dtype=F32, device=p.device)
+        w = programs.constant(_weights(options), p.device, np.float32)
         pw = p * w
     return pixels, pw.contiguous()
 
@@ -1026,8 +1028,8 @@ def encode_planar(stage: StageBest, rank_base: int, pixels, pw,
     # fh, fv, fo per channel: the reference subtracts c*x, c*y and c twice
     # per pixel (ETC.cpp:1330-1343), each a chain in pixel order
     src = pw if fake else lanes.to_float(pixels)           # [N, 16, 3]
-    xy1 = torch.tensor(np.stack([_PLANAR_X, _PLANAR_Y, np.ones(16)], 1),
-                       dtype=F32, device=dev)              # [16, 3]
+    xy1 = programs.constant(np.stack([_PLANAR_X, _PLANAR_Y, np.ones(16)], 1),
+                            dev, np.float32)               # [16, 3]
     acc = torch.zeros((n, 3, 3), dtype=F32, device=dev)    # [N, ch, (h,v,o)]
     for px in range(16):
         c = src[:, px, :, None] * xy1[px]
@@ -1049,9 +1051,9 @@ def encode_planar(stage: StageBest, rank_base: int, pixels, pw,
     if fake:
         fco = convert_from_fake_bt709(fco)
     # 127/255 and 63/255 are doubles rounded once to float32
-    scale = torch.tensor(np.float32([63.0 / 255.0, 127.0 / 255.0,
-                                     63.0 / 255.0]), device=dev)[:, None]
-    cap = torch.tensor(np.float32([63.0, 127.0, 63.0]), device=dev)[:, None]
+    scale = programs.constant(np.float32([63.0 / 255.0, 127.0 / 255.0,
+                                          63.0 / 255.0]), dev)[:, None]
+    cap = programs.constant(np.float32([63.0, 127.0, 63.0]), dev)[:, None]
     coeff = torch.minimum(cap, torch.clamp_min(fco, 0.0) * scale)
 
     if fake:
@@ -1080,8 +1082,8 @@ def encode_planar(stage: StageBest, rank_base: int, pixels, pw,
         ).squeeze(2)
         if not options.flags & Flags.UNIFORM:
             w = _weights(options)
-            best_err = best_err * torch.tensor(
-                [w[ch] * w[ch] for ch in range(3)], dtype=F32, device=dev)
+            best_err = best_err * programs.constant(
+                [w[ch] * w[ch] for ch in range(3)], dev, np.float32)
         total_error = (best_err[:, 0] + best_err[:, 1]) + best_err[:, 2]
 
     hi, lo = _emit_planar(best_coeffs)
@@ -1321,8 +1323,8 @@ def _sector_assignments(pixels, pw, options: Options, num_opaque=None):
         rcp_sqrt3 = _f32(0.57735026918962576450914878050196)
         chroma = torch.stack([chroma[..., 0], chroma[..., 1] * rcp_sqrt3], 2)
     else:
-        axes = torch.tensor(np.float32(chroma_side_axes(options)),
-                            device=pw.device)              # [2, 3]
+        axes = programs.constant(np.float32(chroma_side_axes(options)),
+                                 pw.device)                # [2, 3]
         t = pw[:, :, None, :] * axes                       # [N, 16, 2, 3]
         cc3 = (t[..., 0] + t[..., 1]) + t[..., 2]          # [N, 16, 2]
         centroid = _chain_sum(cc3, 1)[:, None]

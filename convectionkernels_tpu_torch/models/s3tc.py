@@ -21,6 +21,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import programs
 from ..ops import lanes, pca
 from ..ops.index_select import IndexSelector, aggregated_error_finalize
 from ..ops.refine import EndpointRefiner
@@ -198,7 +199,7 @@ def pack_rgb(pixels, flags: int, channel_weights, alpha_test: bool,
     n, dev = p.shape[0], p.device
     cw = [np.float32(w) for w in channel_weights]
     cw_sq = [float(w * w) for w in cw]
-    cw_t = torch.tensor(cw, dtype=F32, device=dev)
+    cw_t = programs.constant(cw, dev, np.float32)
 
     if alpha_test:
         # threshold computed in float32 exactly as the C++ float expression
@@ -330,9 +331,9 @@ def _test_counts(flags, pixels, float_pixels, pw_sorted, num_elements,
             for n_in in range(counts[p_i, i]):
                 grp[p_i, e], pos[p_i, e] = i, n_in
                 e += 1
-    counts_t = torch.as_tensor(counts, device=dev)
-    grp_t = torch.as_tensor(grp, device=dev)
-    pos_t = torch.as_tensor(pos, device=dev)
+    counts_t = programs.constant(counts, dev)
+    grp_t = programs.constant(grp, dev)
+    pos_t = programs.constant(pos, dev)
 
     # prefix_ok[i] = every group before i fits within numElements
     ne = num_elements[:, None]
@@ -527,7 +528,7 @@ def pack_interpolated_alpha(pixels, channel: int, is_signed: bool,
     low_clearances = torch.cat([zero_col, sorted_px[:, :15]], dim=1)
     high_clearances = torch.cat(
         [zero_col, high_terminal - sorted_px[:, 1:].flip(1)], dim=1)
-    first_i, last_i = (torch.as_tensor(a, device=dev)
+    first_i, last_i = (programs.constant(a, dev)
                        for a in _heuristic_candidates())
     clearance = torch.maximum(high_clearances[:, 15 - last_i],
                               low_clearances[:, first_i])
@@ -638,7 +639,7 @@ def _pack_bc1_blocks(best: _Best):
     ep_a = torch.where(swap, cep1, cep0)
     ep_b = torch.where(swap, cep0, cep1)
 
-    order = torch.as_tensor(_INDEX_ORDER.reshape(-1), device=e.device)
+    order = programs.constant(_INDEX_ORDER.reshape(-1), e.device)
     mapped = order[(case[:, None] * 4 + best.indexes).long()]
     packed = (mapped[:, 0::4] | (mapped[:, 1::4] << 2)
               | (mapped[:, 2::4] << 4) | (mapped[:, 3::4] << 6))

@@ -25,6 +25,18 @@ from convectionkernels_tpu_torch.models.bc7 import LexBest
 from tests.test_torch_goldens import BC6H_CASES, hdr_blocks, load_bc6h
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for this module: the test workers share the
+    machine's cores, where the intra-op threads of several workers
+    oversubscribe them (the port's encodes pad small batches to 256-block
+    buckets, so each call here does a bucket's work)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def port_encode(px, case):
     _, _, signed, flags, seed_points, refine_rounds = case
     encode = ckt.encode_bc6hs if signed else ckt.encode_bc6hu

@@ -29,6 +29,19 @@ from convectionkernels_tpu_torch.ops.refine import EndpointRefiner
 from convectionkernels_tpu_torch.tables import bc6h_layout
 from tests.test_torch_goldens import hdr_blocks, hdr_signed_blocks
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for this module: the test workers share the
+    machine's cores, where the intra-op threads of several workers
+    oversubscribe them (the port's encodes pad small batches to 256-block
+    buckets, so each call here does a bucket's work)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 CW = [np.float32(w) for w in Options().channel_weights()]
 
 

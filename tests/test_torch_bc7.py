@@ -26,6 +26,19 @@ from tests import blockgen
 from tests.test_torch_goldens import (LIGHT, LIGHT_CASES, load_light,
                                       load_q50)
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for this module: the test workers share the
+    machine's cores, where the intra-op threads of several workers
+    oversubscribe them (the port's encodes pad small batches to 256-block
+    buckets, so each call here does a bucket's work)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
@@ -249,7 +262,7 @@ sys.modules["jax"] = None          # any import of jax now raises
 import torch
 import convectionkernels_tpu_torch as ckt
 from convectionkernels_tpu_torch import (api, cli, convert, cuda_lib,
-                                         exact_probe)
+                                         exact_probe, programs)
 from convectionkernels_tpu_torch.parallel import distributed, sharding
 from convectionkernels_tpu_torch.utils import (containers, image, metrics,
                                                native)
@@ -296,6 +309,9 @@ assert sharding.encode_sharded(ckt.encode_bc1, blocks, ["cpu"] * 2).shape \
 assert distributed.encode_image_distributed(
     ckt.encode_bc1, img, device="cpu", assemble=True).shape == (2, 8)
 assert metrics.psnr(blocks, blocks) == float("inf")
+assert programs.programs()
+api.release_programs()
+assert not programs.programs()
 assert "bc7" in containers.DXGI_FORMATS and native.available() in (True, False)
 with contextlib.redirect_stdout(io.StringIO()) as usage:
     assert cli.main([]) == 1

@@ -25,6 +25,19 @@ from convectionkernels_tpu_torch.models.bc7_common import MODE_INFO
 from convectionkernels_tpu_torch.tables import bc7_geometry as geom
 from tests import blockgen
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for this module: the test workers share the
+    machine's cores, where the intra-op threads of several workers
+    oversubscribe them (the port's encodes pad small batches to 256-block
+    buckets, so each call here does a bucket's work)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 CW = [np.float32(w) for w in Options().channel_weights()]
 
 
@@ -278,7 +291,9 @@ def test_dual_plane_best():
     ci, cf = port_kernel.dual_plane_consts(combos, CW)
     got = port_kernel.dual_plane_best(torch.as_tensor(pix),
                                       torch.as_tensor(ci),
-                                      torch.as_tensor(cf), 2, False, False)
+                                      torch.as_tensor(cf), 2, False, False,
+                                      port_kernel.dual_plane_work(ci, cf,
+                                                                  "cpu"))
     ref = jax_kernel.dual_plane_best(jnp.asarray(pix), combos, CW, 2, False,
                                      False, interpret=True)
     lanes = ci.shape[1]

@@ -4,8 +4,9 @@ Each kernel wrapper is held bit for bit against its plain PyTorch version
 on the same card inputs, encode_bc7, encode_bc6hu and encode_bc6hs on the
 card against the stored JAX bytes, and the S3TC and ETC entry points
 (eager tensor code, no kernel of their own) on the card against the stored
-JAX bytes and against the port on the CPU. This file imports nothing of JAX, so it runs on a machine
-without it:
+JAX bytes and against the port on the CPU, and the program layer's CUDA
+graphs against the same encodes run op by op. This file imports nothing of
+JAX, so it runs on a machine without it:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
@@ -17,7 +18,7 @@ import pytest
 import torch
 
 import convectionkernels_tpu_torch as ckt
-from convectionkernels_tpu_torch import exact_probe
+from convectionkernels_tpu_torch import exact_probe, programs
 from convectionkernels_tpu_torch.models import (bc6h, bc6h_kernel, bc7,
                                                 bc7_kernel)
 from tests import blockgen
@@ -289,7 +290,8 @@ def test_dual_plane_work_orders(card, case, fast):
     pix = torch.as_tensor(search_corpus(77, seed=17), device=card)
     pix = pix.to(torch.int32).reshape(-1, 64).contiguous()
     args = (pix, torch.as_tensor(ci, device=card),
-            torch.as_tensor(cf, device=card), 2, False, fast)
+            torch.as_tensor(cf, device=card), 2, False, fast,
+            bc7_kernel.dual_plane_work(ci, cf, card))
     got = bc7_kernel.dual_plane_best(*args)
     assert same_outputs(got, bc7_kernel.dual_plane_best_plain(*args))
 
@@ -556,3 +558,84 @@ def test_nccl_world_of_one_assembles(card):
         dist.destroy_process_group()
     want = ckt.encode_bc1(image.blockify(img), device=card).cpu().numpy()
     np.testing.assert_array_equal(got, want)
+
+
+# --- programs: a CUDA graph of each configuration and bucket ----------------------
+
+def graph_encoders(card):
+    """bc7 at quality 5, bc1 and ETC2 punchthrough (both sides of its
+    split) on a 64x64 texture, 256 blocks."""
+    px = blockgen.mixed_blocks(256, seed=811)
+    return {"bc7_q5": lambda: ckt.encode_bc7(px, ckt.Options(**LIGHT),
+                                             quality=5, device=card),
+            "bc1": lambda: ckt.encode_bc1(px, device=card),
+            "etc2_punchthrough": lambda: ckt.encode_etc2_punchthrough(
+                px, device=card)}
+
+
+def graph_captures():
+    return [b.captures for p in programs.programs()
+            for b in p.buckets.values()]
+
+
+@pytest.fixture
+def no_programs():
+    programs.release_programs()
+    yield
+    programs.release_programs()
+
+
+@pytest.mark.parametrize("name", ("bc7_q5", "bc1", "etc2_punchthrough"))
+def test_replayed_bytes_equal_eager_bytes(card, no_programs, name):
+    """The first call (op by op on the static input), the second (capture,
+    then replay) and the third (replay) give the bytes of the body run op
+    by op under programs.eager(); each bucket is captured once."""
+    encode = graph_encoders(card)[name]
+    with programs.eager():
+        want = encode()
+    assert not any(graph_captures())
+    for _ in range(3):
+        torch.testing.assert_close(encode(), want, rtol=0, atol=0)
+    assert graph_captures() and set(graph_captures()) == {1}
+
+
+def test_programs_replay_out_of_capture_order(card, no_programs):
+    """Two programs captured in order into the one shared pool, then
+    replayed A, B, A, B, B, A: each call gives its eager bytes."""
+    encoders = graph_encoders(card)
+    with programs.eager():
+        want = {k: encoders[k]() for k in ("bc7_q5", "bc1")}
+    for name in ("bc7_q5", "bc1") * 2 + ("bc7_q5", "bc1", "bc7_q5", "bc1",
+                                         "bc1", "bc7_q5"):
+        torch.testing.assert_close(encoders[name](), want[name], rtol=0,
+                                   atol=0)
+    assert graph_captures() == [1, 1]
+
+
+def test_release_programs_lowers_reserved_memory(card, no_programs):
+    encoders = graph_encoders(card)
+    for _ in range(2):
+        for encode in encoders.values():
+            encode()
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_reserved(card)
+    programs.release_programs()
+    assert programs.programs() == []
+    assert torch.cuda.memory_reserved(card) < held
+
+
+def test_second_call_in_a_bucket_captures_no_more(card, no_programs):
+    """40 and 72 blocks share the 256-block bucket: the second call
+    captures it, and no later call in the bucket captures again; the
+    kernels' launches count on every replay."""
+    px = blockgen.mixed_blocks(72, seed=812)
+    with programs.eager():
+        want = ckt.encode_bc7(px, quality=5, device=card)
+    for n in (40, 72, 40, 72, 72):
+        bc7_kernel.LAUNCHES.clear()
+        got = ckt.encode_bc7(px[:n], quality=5, device=card)
+        torch.testing.assert_close(got, want[:n], rtol=0, atol=0)
+        assert all(bc7_kernel.LAUNCHES[k] > 0 for k in PLAIN)
+    (program,) = programs.programs()
+    assert list(program.buckets) == [(256, 16, 4)]
+    assert program.buckets[(256, 16, 4)].captures == 1
