@@ -5,7 +5,8 @@ plain C interface (no PyTorch headers, so a build takes seconds), loaded
 with ctypes. A library is built at first use into build/torch_kernels/
 of the checkout, under a name keyed by a hash of its source, the shared
 header and the flags, so an edited source is rebuilt and an unchanged one
-is loaded as it is. `build_all` starts one nvcc per source, all at once.
+is loaded as it is. `build_all` starts one nvcc per source, all at once,
+and times them as one build of the tracer (`kernel_build`).
 
 Exactness flags: the encoder is held byte for byte against its reference,
 so the kernels are compiled without FMA contraction, with IEEE divide and
@@ -21,6 +22,8 @@ import shutil
 import subprocess
 import tempfile
 import threading
+
+from . import tracing
 
 _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG_DIR, "csrc")
@@ -87,11 +90,8 @@ def log_path(name: str) -> str:
 
 
 def _start_build(name: str):
-    """Start nvcc for `name` unless its library exists; returns
-    (process, temp path, final path) or None."""
+    """Start nvcc for `name`; returns (process, temp path, final path)."""
     path = library_path(name)
-    if os.path.exists(path):
-        return None
     os.makedirs(BUILD_DIR, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
@@ -118,15 +118,17 @@ def build_all(names=SOURCES) -> None:
     """Build every library that is missing, one nvcc per source, all
     started together."""
     with _lock:
-        started = {n: _start_build(n) for n in names}
+        missing = [n for n in names if not os.path.exists(library_path(n))]
+        if not missing:
+            return
         errors = []
-        for n, s in started.items():
-            if s is None:
-                continue
-            try:
-                _finish_build(n, s)
-            except RuntimeError as e:
-                errors.append(str(e))
+        with tracing.build("kernel_build", libraries=" ".join(missing)):
+            started = {n: _start_build(n) for n in missing}
+            for n, s in started.items():
+                try:
+                    _finish_build(n, s)
+                except RuntimeError as e:
+                    errors.append(str(e))
         if errors:
             raise RuntimeError("\n".join(errors))
 

@@ -23,6 +23,10 @@ copied out before the next, so a later capture reuses what an earlier
 one freed and a process holds far less than the sum of the programs'
 peaks. On the CPU a program is the same padded call, run op by op.
 
+A bucket's first call and its capture are timed as builds of the tracer
+(tracing.py), each up to a synchronize of the card, whether or not
+anything reads them.
+
 Inside `eager()` the programs on the card run their bodies op by op too,
 with no capture and no replay (per-launch kernel timing, the eager side of
 a comparison). Nothing enters it on an error: a capture or a replay that
@@ -42,6 +46,8 @@ import functools
 
 import numpy as np
 import torch
+
+from . import tracing
 
 # Batches below the chunk size are padded to a power-of-two bucket of at
 # least BUCKET_MIN blocks (the JAX package's _BUCKET_MIN).
@@ -147,8 +153,10 @@ class _Bucket:
             pool = _POOLS[device] = torch.cuda.graph_pool_handle()
         before = [collections.Counter(c) for c in _COUNTERS]
         try:
-            with torch.cuda.graph(graph, pool=pool):
-                out = body(self.static_in)
+            with tracing.build("capture", device,
+                               bucket=self.static_in.shape[0]):
+                with torch.cuda.graph(graph, pool=pool):
+                    out = body(self.static_in)
             self.launched = [(c, c - b) for c, b in zip(_COUNTERS, before)]
         finally:
             for counter, saved in zip(_COUNTERS, before):
@@ -197,8 +205,9 @@ class Program:
             return self.body(x)
         with torch.cuda.device(x.device):
             if bucket.static_in is None:
-                bucket.static_in = x.clone()
-                return self.body(bucket.static_in)
+                with tracing.build("first_call", x.device, bucket=x.shape[0]):
+                    bucket.static_in = x.clone()
+                    return self.body(bucket.static_in)
             bucket.static_in.copy_(x)
             if bucket.graph is None:
                 bucket.capture(self.body, x.device)

@@ -18,7 +18,7 @@ import pytest
 import torch
 
 import convectionkernels_tpu_torch as ckt
-from convectionkernels_tpu_torch import exact_probe, programs
+from convectionkernels_tpu_torch import exact_probe, programs, tracing
 from convectionkernels_tpu_torch.models import (bc6h, bc6h_kernel, bc7,
                                                 bc7_kernel)
 from tests import blockgen
@@ -639,3 +639,33 @@ def test_second_call_in_a_bucket_captures_no_more(card, no_programs):
     (program,) = programs.programs()
     assert list(program.buckets) == [(256, 16, 4)]
     assert program.buckets[(256, 16, 4)].captures == 1
+
+
+def test_a_buckets_first_call_and_capture_are_timed_builds(
+        card, no_programs, monkeypatch):
+    """A bucket's first call and its capture are each one build, each timed
+    up to a synchronize of the card; the replays after them build
+    nothing."""
+    px = blockgen.mixed_blocks(300, seed=813)
+    with programs.eager():
+        want = ckt.encode_bc7(px, quality=5, device=card)
+    synced = []
+    synchronize = torch.cuda.synchronize
+
+    def logged(device=None):
+        synchronize(device)
+        synced.append((device, tracing.now_ns()))
+
+    monkeypatch.setattr(torch.cuda, "synchronize", logged)
+    n = len(tracing.builds())
+    for _ in range(4):
+        got = ckt.encode_bc7(px, quality=5, device=card)
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+    builds = [b for b in tracing.builds()[n:] if b.name != "kernel_build"]
+    assert [(b.name, b.attrs) for b in builds] == [
+        ("first_call", {"bucket": 512}), ("capture", {"bucket": 512})]
+    assert builds[0].end <= builds[1].start
+    for b in builds:
+        assert any(d is not None and torch.device(d).type == "cuda"
+                   and b.start <= t <= b.end
+                   for d, t in synced), (b, synced)
