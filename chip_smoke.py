@@ -68,7 +68,10 @@ Phases, each printed on its own line; a failed check prints
          back-to-back launches on the inputs captured from the encode;
        - BC6H: a 1024x1024 RGBA16F texture (65,536 blocks of half floats
          uniform in [0, 16), alpha 1.0) through encode_bc6hu with default
-         Options (4 x 3 meta rounds, slow indexing), decoded back;
+         Options (4 x 3 meta rounds, slow indexing), decoded back; then
+         the combine's 10 launches (`bc6h_combine`), each timed alone (20
+         back-to-back launches on the inputs captured from the encode) and
+         against its plain version, compared on every block;
        - S3TC: eight configurations at 65,536 blocks with default Options,
          bc1, bc2, bc3, bc4u, bc5u and the exhaustive bc1 on the BC7
          texture, bc4s and bc5s on the JAX bench's int8 blocks; each
@@ -331,6 +334,21 @@ def work_bc6h_group(args):
                + tweaks * (refines - 1) * (solve + contribute) + dedup)
     nbytes = n * (48 * 4 + 2 * 3 * 64 * 4) + n * rounds * 64 * 40
     return nbytes, n * 64 * per_row
+
+
+def work_bc6h_combine(args):
+    """csrc/bc6h_combine.cu: every chain output it must read once (err,
+    valid and the 6 endpoint words of each row and round; the winning rows'
+    index words) and its outputs; per (partition, meta0, meta1) candidate
+    the valid test, the float add and the compare. The legality tests run
+    only for a candidate that improves its lane's best, and are not
+    counted."""
+    n, rounds, q = args[0].shape
+    partitioned = q == 64
+    nbytes = n * rounds * q * 8 * 4 + n * (4 if partitioned else 16) * 4 \
+        + n * (4 + 12 + 16) * 4
+    candidates = 32 * rounds * rounds if partitioned else rounds
+    return nbytes, n * candidates * 3
 
 
 def bound_ms(nbytes, ops):
@@ -733,6 +751,47 @@ def phase(name, **fields):
     print(json.dumps(dict(phase=name, **fields)), flush=True)
 
 
+def bc6h_combine_phase(bc6h_kernel, programs, encode):
+    """csrc/bc6h_combine.cu at the full width: the launches of one op-by-op
+    encode, each then timed alone (ALONE_LAUNCHES back to back), its plain
+    version timed once on the same inputs, and the two compared on every
+    block."""
+    import torch
+    captured, real = [], bc6h_kernel.combine
+
+    def keep(*args):
+        captured.append(args)
+        return real(*args)
+
+    bc6h_kernel.combine = keep
+    try:
+        with programs.eager():
+            encode()
+        torch.cuda.synchronize()
+    finally:
+        bc6h_kernel.combine = real
+    rows = []
+    for args in captured:
+        ms_alone = time_alone(real, args)
+        plain_ms, want = timed(lambda: bc6h_kernel.combine_plain(*args), 1)
+        got = real(*args)
+        same, max_err = compare(
+            [got[0], got[1], *[got[2][k] for k in sorted(got[2])]],
+            [want[0], want[1], *[want[2][k] for k in sorted(want[2])]])
+        nbytes, ops = work_bc6h_combine(args)
+        bound, bound_by = bound_ms(nbytes, ops)
+        n, rounds, q = args[0].shape
+        rows.append(dict(aprec=args[4], partitioned=q == 64, blocks=n,
+                         rounds=rounds, ms_alone=ms_alone,
+                         plain_ms=plain_ms[0], bound_ms=bound,
+                         bound_by=bound_by, share_alone=bound / ms_alone,
+                         equal=same, max_abs_err=max_err, bytes=nbytes,
+                         ops=ops))
+        del want, got
+    torch.cuda.empty_cache()
+    return rows
+
+
 def time_alone(fn, args, count=ALONE_LAUNCHES):
     """ms per launch of `count` back-to-back calls of fn(*args) after one
     warm-up call, CUDA events around the whole run."""
@@ -954,7 +1013,8 @@ def cli_phase(api, dev, img_path, img, work):
             rc = cli.main(flags + [img_path, path])
         wall_s = time.perf_counter() - t0
         launches = {**{k: bc7_kernel.LAUNCHES[k] for k in BC7_KERNELS},
-                    BC6H_KERNEL: bc6h_kernel.LAUNCHES[BC6H_KERNEL]}
+                    BC6H_KERNEL: bc6h_kernel.LAUNCHES[BC6H_KERNEL],
+                    "combine": bc6h_kernel.LAUNCHES["combine"]}
         launched[label] = launches
         if rc != 0:
             raise SystemExit(f"the CLI {' '.join(flags)} returned {rc}")
@@ -994,7 +1054,7 @@ def cli_phase(api, dev, img_path, img, work):
                              f"on the card (levels {bad_levels}), from the "
                              f"CPU's ({cpu_bad} blocks) or from the module "
                              f"run's file")
-    need = {"bc7": BC7_KERNELS, "bc6h": (BC6H_KERNEL,)}
+    need = {"bc7": BC7_KERNELS, "bc6h": (BC6H_KERNEL, "combine")}
     for label, names in need.items():
         if not all(launched[label][k] for k in names):
             raise SystemExit(f"the CLI's {label} run did not launch every "
@@ -1134,7 +1194,8 @@ def distributed_phase(api, dev, img_path, img, work):
 GRAPH_LAUNCHES = {"bc7_q50": ("bc7_kernel", {"shape_pca": 2,
                                              "single_plane_mode_best": 6,
                                              "dual_plane_best": 1}),
-                  "bc6hu": ("bc6h_kernel", {BC6H_KERNEL: 6})}
+                  "bc6hu": ("bc6h_kernel", {BC6H_KERNEL: 6,
+                                            "combine": 10})}
 PROFILED_REPLAYS = ("bc7_q50", "bc6hu", "bc1", "bc3")
 
 
@@ -1571,10 +1632,11 @@ def main(argv=None):
     if out.shape != (hdr.shape[0], 16) or out.dtype != torch.uint8:
         raise SystemExit(f"encode_bc6hu returned {tuple(out.shape)} "
                          f"{out.dtype}")
-    if launches[BC6H_KERNEL] != 6 * n_chunks:
-        raise SystemExit(f"encode_bc6hu launched its kernel "
-                         f"{launches[BC6H_KERNEL]} times, not 6 for each of "
-                         f"its {n_chunks} chunks")
+    if launches[BC6H_KERNEL] != 6 * n_chunks or \
+            bc6h_kernel.LAUNCHES["combine"] != 10 * n_chunks:
+        raise SystemExit(f"encode_bc6hu launched its kernels "
+                         f"{dict(bc6h_kernel.LAUNCHES)} times, not 6 and 10 "
+                         f"for each of its {n_chunks} chunks")
     torch.cuda.reset_peak_memory_stats(dev)
     times, again = timed(encode_bc6h_full)
     peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
@@ -1616,6 +1678,15 @@ def main(argv=None):
         encode_bc6h_full()
         torch.cuda.synchronize()
     detail["full_width_bc6h_launches"] = full_bc6h.detail
+    combine_rows = bc6h_combine_phase(bc6h_kernel, programs,
+                                      encode_bc6h_full)
+    detail["bc6h_combine"] = combine_rows
+    phase("bc6h_combine", launches=combine_rows, ptxas={
+        k: v for k, v in usage.items()
+        if k.startswith("bc6h_combine_kernel")})
+    if not all(r["equal"] for r in combine_rows):
+        raise SystemExit("the BC6H combine disagrees with its plain version "
+                         "at the full width")
     del out, again
 
     # 5c. the S3TC full-width runs: 65,536 blocks each, default options

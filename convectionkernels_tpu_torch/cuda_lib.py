@@ -30,7 +30,7 @@ CSRC = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "torch_kernels")
 
 SOURCES = ("shape_pca", "single_plane", "dual_plane", "bc6h_group",
-           "exact_probe")
+           "bc6h_combine", "exact_probe")
 HEADERS = ("bc7_common.cuh",)
 
 NVCC_FLAGS = (
@@ -56,6 +56,9 @@ SIGNATURES = {
     "bc6h_group": ("ck_bc6h_group",
                    [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P,
                     _P, _P, _P]),
+    "bc6h_combine": ("ck_bc6h_combine",
+                     [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _P, _P, _P,
+                      _P, _P, _P, _P, _P, _P]),
     "exact_probe": ("ck_exact_probe", [_P, _P, _I, _P, _P, _P]),
 }
 

@@ -16,6 +16,8 @@ a Python list or an int64 numpy array would otherwise be int64.
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
@@ -116,7 +118,7 @@ def lex_min_with_index(x, dim):
         dims = [d + x.dim() if d < 0 else d for d in dim]
         keep = [d for d in range(x.dim()) if d not in dims]
         flat = x.permute(*keep, *dims).reshape(
-            *[x.shape[d] for d in keep], -1)
+            *[x.shape[d] for d in keep], math.prod(x.shape[d] for d in dims))
         return torch.amin(flat, dim=-1), first_argmin(flat, -1)
     n = x.shape[dim]
     best = x.select(dim, 0)

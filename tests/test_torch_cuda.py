@@ -22,7 +22,10 @@ from convectionkernels_tpu_torch import exact_probe, programs, tracing
 from convectionkernels_tpu_torch.models import (bc6h, bc6h_kernel, bc7,
                                                 bc7_kernel)
 from tests import blockgen
-from tests.test_torch_goldens import (BC6H_CASES, DEFAULT, ETC_CASES, FAST,
+from tests.test_torch_bc6h_combine import (GROUPS, meta_ids_of,
+                                           synthetic_chain)
+from tests.test_torch_goldens import (BC6H_CASES, BC6H_FAST, DEFAULT,
+                                      ETC_CASES, FAST,
                                       LIGHT, LIGHT_CASES, PUNCH, S3TC_CASES,
                                       UNIFORM, hdr_blocks, hdr_edge_blocks,
                                       load_bc6h, load_etc, load_light,
@@ -354,6 +357,7 @@ def test_encode_bc6h_on_card(card, case):
     assert got.device.type == "cuda"        # device=None: the card
     np.testing.assert_array_equal(got.cpu().numpy(), blocks)
     assert bc6h_kernel.LAUNCHES["partitioned_group_meta_rounds"] == 6
+    assert bc6h_kernel.LAUNCHES["combine"] == 10
 
 
 def test_bc6h_wrapper_checks_its_inputs(card):
@@ -371,6 +375,127 @@ def test_bc6h_wrapper_checks_its_inputs(card):
         run(pix, line, line, 10, False, False, False, cw, 5, 3)
     with pytest.raises(ValueError):
         run(pix, line, line, 16, False, False, False, cw, 4, 3)
+
+
+# --- BC6H's combine: the kernel against its plain version ---------------------------
+
+def same_combine(got, want):
+    """Every field combine returns, bit for bit; the name of the first that
+    differs, or None."""
+    names = ("err", "rank") + tuple(f"payload.{k}" for k in sorted(got[2]))
+    pairs = [got[0], got[1]] + [got[2][k] for k in sorted(got[2])]
+    wants = [want[0], want[1]] + [want[2][k] for k in sorted(got[2])]
+    for name, a, b in zip(names, pairs, wants):
+        if a.dtype != b.dtype or not same_bits(a, b):
+            return name
+    return None
+
+
+@pytest.mark.parametrize("fast", [False, True], ids=["slow", "fast"])
+@pytest.mark.parametrize("rounds", [(1, 1), (2, 3), (4, 3)],
+                         ids=["1x1", "2x3", "4x3"])
+@pytest.mark.parametrize("signed", [False, True], ids=["unsigned", "signed"])
+def test_bc6h_combine_matches_plain_on_golden_chains(card, signed, rounds,
+                                                     fast, monkeypatch):
+    """Every group's combine in a pack of the blocks of every stored BC6H
+    golden of that signedness: one launch each, bit-equal to the plain
+    version on the same chain outputs."""
+    px = np.concatenate([load_bc6h(c[0])[0] for c in BC6H_CASES
+                         if c[2] == signed])
+    real, seen = bc6h_kernel.combine, []
+
+    def checked(*args):
+        before = bc6h_kernel.LAUNCHES["combine"]
+        got = real(*args)
+        assert bc6h_kernel.LAUNCHES["combine"] == before + 1
+        assert same_combine(got, bc6h_kernel.combine_plain(*args)) is None
+        seen.append(args[4])
+        return got
+
+    monkeypatch.setattr(bc6h_kernel, "combine", checked)
+    opts = ckt.Options(flags=DEFAULT | (BC6H_FAST if fast else 0))
+    bc6h.pack(torch.as_tensor(px, device=card), opts.flags,
+              opts.channel_weights(), signed, *rounds)
+    assert seen == [g[1] for g in GROUPS]
+
+
+COMBINE_SIZES = [(g, n) for g in range(len(GROUPS)) for n in (0, 1, 33)] + [
+    (4, 65537), (0, 65537)]
+
+
+@pytest.mark.parametrize("case", COMBINE_SIZES,
+                         ids=[f"{'p' if GROUPS[g][0] else 's'}{GROUPS[g][1]}"
+                              f"_n{n}" for g, n in COMBINE_SIZES])
+def test_bc6h_combine_matches_plain_synthetic(card, case):
+    """Synthetic chain outputs (planted ties across partitions and rounds,
+    rows with no valid pair, +inf errors) of every precision group at 12
+    rounds, N = 0, 1 and 33, and 65,537 blocks (rows drawn from 1,024) for
+    a partitioned and a single-mode group."""
+    g, n = case
+    group = GROUPS[g]
+    meta_ids = meta_ids_of(4, 3)
+    pool = [torch.as_tensor(a, device=card)
+            for a in synthetic_chain(max(n, 1) if n < 1024 else 1024, 12,
+                                     group, seed=700 + g)]
+    rows = torch.as_tensor(np.random.default_rng(g).integers(
+        0, pool[0].shape[0], size=n), device=card)
+    chain = [a.index_select(0, rows).contiguous() for a in pool]
+    args = (*chain, group[1], group[2], meta_ids, 4 * 144 + g)
+    before = bc6h_kernel.LAUNCHES["combine"]
+    got = bc6h_kernel.combine(*args)
+    torch.cuda.synchronize()
+    assert bc6h_kernel.LAUNCHES["combine"] == before + (1 if n else 0)
+    assert got[0].shape == (n,) and got[2]["idx"].shape == (n, 16)
+    assert same_combine(got, bc6h_kernel.combine_plain(*args)) is None
+    if n == 33:     # the plain version on the CPU agrees as well
+        cpu = bc6h_kernel.combine(*[a.cpu() for a in chain], *args[4:])
+        on_card = (cpu[0].to(card), cpu[1].to(card),
+                   {k: v.to(card) for k, v in cpu[2].items()})
+        assert same_combine(got, on_card) is None
+
+
+def test_bc6h_combine_checks_its_inputs(card):
+    group = GROUPS[4]
+    meta_ids = meta_ids_of(4, 3)
+    err, valid, eps, idx = [torch.as_tensor(a, device=card) for a in
+                            synthetic_chain(4, 12, group, seed=3)]
+    run = bc6h_kernel.combine
+    with pytest.raises(TypeError):
+        run(err, valid.float(), eps, idx, 11, group[2], meta_ids, 0)
+    with pytest.raises(ValueError):
+        run(err, valid, eps[:, :, :3], idx, 11, group[2], meta_ids, 0)
+    with pytest.raises(ValueError):
+        run(err, valid, eps, idx.cpu(), 11, group[2], meta_ids, 0)
+    with pytest.raises(ValueError):
+        run(err, valid, eps, idx, 11, group[2], meta_ids[:6], 0)
+    with pytest.raises(ValueError):
+        run(err, valid, eps, idx, 10, group[2], meta_ids, 0)
+    with pytest.raises(ValueError):
+        run(err, valid, eps.transpose(2, 3).contiguous().transpose(2, 3),
+            idx, 11, group[2], meta_ids, 0)
+
+
+def test_bc6h_replayed_program_equals_its_first_call(card):
+    """encode_bc6hu's first call (op by op), capture and replays give the
+    same bytes, the golden's; each replay counts 10 combine launches."""
+    programs.release_programs()
+    try:
+        (case,) = [c for c in BC6H_CASES if c[0] == "default"]
+        px, blocks, _ = load_bc6h("default")
+        opts = ckt.Options(flags=case[3], seed_points=case[4],
+                           refine_rounds_bc6h=case[5])
+        outs = []
+        for _ in range(3):
+            bc6h_kernel.LAUNCHES.clear()
+            outs.append(ckt.encode_bc6hu(px, opts, device=card))
+            torch.cuda.synchronize()
+            assert bc6h_kernel.LAUNCHES["combine"] == 10
+            assert bc6h_kernel.LAUNCHES["partitioned_group_meta_rounds"] == 6
+        for out in outs:
+            np.testing.assert_array_equal(out.cpu().numpy(), blocks)
+        assert graph_captures() == [1]
+    finally:
+        programs.release_programs()
 
 
 # --- S3TC: the card against the stored JAX bytes and the port on the CPU -----------
