@@ -69,7 +69,8 @@ Phases, each printed on its own line; a failed check prints
        - BC6H: a 1024x1024 RGBA16F texture (65,536 blocks of half floats
          uniform in [0, 16), alpha 1.0) through encode_bc6hu with default
          Options (4 x 3 meta rounds, slow indexing), decoded back; then
-         the combine's 10 launches (`bc6h_combine`), each timed alone (20
+         the combine's 10 launches (`bc6h_combine`) and the single-mode
+         groups' 4 chain launches (`bc6h_single`), each timed alone (20
          back-to-back launches on the inputs captured from the encode) and
          against its plain version, compared on every block;
        - S3TC: eight configurations at 65,536 blocks with default Options,
@@ -335,6 +336,36 @@ def work_bc6h_group(args):
     nbytes = n * (48 * 4 + 2 * 3 * 64 * 4) + n * rounds * 64 * 40
     return nbytes, n * 64 * per_row
 
+
+def work_bc6h_single(args):
+    """csrc/bc6h_single.cu per texture block: the chain's operations for
+    its one row of 16 pixels and 16 interpolants, each counted once a
+    block. The kernel's 16 lanes repeat the endpoints, the dedup and the
+    refiner's totals of their block; those repeats are not counted."""
+    pix, is_signed, fast, uniform = args[0], args[4], args[5], args[6]
+    tweaks, refines = args[8], args[9]
+    n, rounds = pix.shape[0], tweaks * refines
+    unscale = 6 if is_signed else 2
+    recon = 6 + unscale                  # interpolate, round, shift, unscale
+    weigh = 0 if uniform else 1
+    if fast:
+        setup = 6 + 5 + 2 + 6            # origin, diff, len_sq, divide, axis
+        per_px = (8 + 4 + 3              # project, clamp and round, weight
+                  + 3 * (recon + 3 + weigh) + 2)
+    else:
+        setup = 16 * 3 * (recon + 12 + 1)  # interpolants: TwosCL, times cw
+        per_px = 16 * (8 + 1 + 5) + 3 * (2 + weigh) + 2
+    per_px += 1 + 3                      # subset error; invert
+    per_round = (6 * 14                  # quantize, unquantize
+                 + setup + 16 * per_px + 8 + 3)
+    seed = 6 * 7                         # tweak-seeded endpoints
+    solve = 12 + 3 * 14                  # refined endpoints
+    contribute = 16 * 26                 # refiner totals of 16 pixels
+    dedup = 7 * rounds * (rounds - 1) // 2
+    per_block = (rounds * per_round + tweaks * seed
+                 + tweaks * (refines - 1) * (solve + contribute) + dedup)
+    nbytes = n * (48 * 4 + 2 * 3 * 4) + n * rounds * (1 + 1 + 6 + 16) * 4
+    return nbytes, n * per_block
 
 def work_bc6h_combine(args):
     """csrc/bc6h_combine.cu: every chain output it must read once (err,
@@ -751,38 +782,37 @@ def phase(name, **fields):
     print(json.dumps(dict(phase=name, **fields)), flush=True)
 
 
-def bc6h_combine_phase(bc6h_kernel, programs, encode):
-    """csrc/bc6h_combine.cu at the full width: the launches of one op-by-op
-    encode, each then timed alone (ALONE_LAUNCHES back to back), its plain
-    version timed once on the same inputs, and the two compared on every
-    block."""
+def kernel_alone_phase(module, name, programs, encode, work, fields,
+                       flatten):
+    """A kernel of `module` at the full width: the launches of its wrapper
+    `name` in one op-by-op encode, each then timed alone (ALONE_LAUNCHES
+    back to back), its plain version (`name`_plain) timed once on the same
+    inputs, and the two compared on every block. fields(args) gives a
+    launch's own fields, flatten(out) the output tensors to compare."""
     import torch
-    captured, real = [], bc6h_kernel.combine
+    captured, real = [], getattr(module, name)
+    plain = getattr(module, name + "_plain")
 
     def keep(*args):
         captured.append(args)
         return real(*args)
 
-    bc6h_kernel.combine = keep
+    setattr(module, name, keep)
     try:
         with programs.eager():
             encode()
         torch.cuda.synchronize()
     finally:
-        bc6h_kernel.combine = real
+        setattr(module, name, real)
     rows = []
     for args in captured:
         ms_alone = time_alone(real, args)
-        plain_ms, want = timed(lambda: bc6h_kernel.combine_plain(*args), 1)
+        plain_ms, want = timed(lambda: plain(*args), 1)
         got = real(*args)
-        same, max_err = compare(
-            [got[0], got[1], *[got[2][k] for k in sorted(got[2])]],
-            [want[0], want[1], *[want[2][k] for k in sorted(want[2])]])
-        nbytes, ops = work_bc6h_combine(args)
+        same, max_err = compare(flatten(got), flatten(want))
+        nbytes, ops = work(args)
         bound, bound_by = bound_ms(nbytes, ops)
-        n, rounds, q = args[0].shape
-        rows.append(dict(aprec=args[4], partitioned=q == 64, blocks=n,
-                         rounds=rounds, ms_alone=ms_alone,
+        rows.append(dict(**fields(args), ms_alone=ms_alone,
                          plain_ms=plain_ms[0], bound_ms=bound,
                          bound_by=bound_by, share_alone=bound / ms_alone,
                          equal=same, max_abs_err=max_err, bytes=nbytes,
@@ -790,6 +820,26 @@ def bc6h_combine_phase(bc6h_kernel, programs, encode):
         del want, got
     torch.cuda.empty_cache()
     return rows
+
+
+def bc6h_combine_phase(bc6h_kernel, programs, encode):
+    """csrc/bc6h_combine.cu at the full width (kernel_alone_phase)."""
+    return kernel_alone_phase(
+        bc6h_kernel, "combine", programs, encode, work_bc6h_combine,
+        lambda a: dict(aprec=a[4], partitioned=a[0].shape[2] == 64,
+                       blocks=a[0].shape[0], rounds=a[0].shape[1]),
+        lambda out: [out[0], out[1], *[out[2][k] for k in sorted(out[2])]])
+
+
+def bc6h_single_phase(bc6h_kernel, programs, encode):
+    """csrc/bc6h_single.cu at the full width (kernel_alone_phase): the 4
+    single-mode groups' launches of one chunk."""
+    return kernel_alone_phase(
+        bc6h_kernel, "single_group_meta_rounds", programs, encode,
+        work_bc6h_single,
+        lambda a: dict(aprec=a[3], signed=a[4], fast=a[5],
+                       blocks=a[0].shape[0], rounds=a[8] * a[9]),
+        list)
 
 
 def time_alone(fn, args, count=ALONE_LAUNCHES):
@@ -1014,6 +1064,8 @@ def cli_phase(api, dev, img_path, img, work):
         wall_s = time.perf_counter() - t0
         launches = {**{k: bc7_kernel.LAUNCHES[k] for k in BC7_KERNELS},
                     BC6H_KERNEL: bc6h_kernel.LAUNCHES[BC6H_KERNEL],
+                    "single_group_meta_rounds":
+                        bc6h_kernel.LAUNCHES["single_group_meta_rounds"],
                     "combine": bc6h_kernel.LAUNCHES["combine"]}
         launched[label] = launches
         if rc != 0:
@@ -1054,7 +1106,9 @@ def cli_phase(api, dev, img_path, img, work):
                              f"on the card (levels {bad_levels}), from the "
                              f"CPU's ({cpu_bad} blocks) or from the module "
                              f"run's file")
-    need = {"bc7": BC7_KERNELS, "bc6h": (BC6H_KERNEL, "combine")}
+    need = {"bc7": BC7_KERNELS, "bc6h": (BC6H_KERNEL,
+                                         "single_group_meta_rounds",
+                                         "combine")}
     for label, names in need.items():
         if not all(launched[label][k] for k in names):
             raise SystemExit(f"the CLI's {label} run did not launch every "
@@ -1195,6 +1249,7 @@ GRAPH_LAUNCHES = {"bc7_q50": ("bc7_kernel", {"shape_pca": 2,
                                              "single_plane_mode_best": 6,
                                              "dual_plane_best": 1}),
                   "bc6hu": ("bc6h_kernel", {BC6H_KERNEL: 6,
+                                            "single_group_meta_rounds": 4,
                                             "combine": 10})}
 PROFILED_REPLAYS = ("bc7_q50", "bc6hu", "bc1", "bc3")
 
@@ -1633,10 +1688,12 @@ def main(argv=None):
         raise SystemExit(f"encode_bc6hu returned {tuple(out.shape)} "
                          f"{out.dtype}")
     if launches[BC6H_KERNEL] != 6 * n_chunks or \
+            bc6h_kernel.LAUNCHES["single_group_meta_rounds"] \
+            != 4 * n_chunks or \
             bc6h_kernel.LAUNCHES["combine"] != 10 * n_chunks:
         raise SystemExit(f"encode_bc6hu launched its kernels "
-                         f"{dict(bc6h_kernel.LAUNCHES)} times, not 6 and 10 "
-                         f"for each of its {n_chunks} chunks")
+                         f"{dict(bc6h_kernel.LAUNCHES)} times, not 6, 4 and "
+                         f"10 for each of its {n_chunks} chunks")
     torch.cuda.reset_peak_memory_stats(dev)
     times, again = timed(encode_bc6h_full)
     peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
@@ -1687,6 +1744,16 @@ def main(argv=None):
     if not all(r["equal"] for r in combine_rows):
         raise SystemExit("the BC6H combine disagrees with its plain version "
                          "at the full width")
+    single_rows = bc6h_single_phase(bc6h_kernel, programs, encode_bc6h_full)
+    detail["bc6h_single"] = single_rows
+    phase("bc6h_single", launches=single_rows, ptxas={
+        k: v for k, v in usage.items()
+        if k.startswith(("bc6h_single_kernel", "bc6h_group_kernel"))})
+    if len(single_rows) != 4 * n_chunks or \
+            not all(r["equal"] for r in single_rows):
+        raise SystemExit("the BC6H single-mode chain kernel disagrees with "
+                         "its plain version at the full width, or did not "
+                         "launch 4 times a chunk")
     del out, again
 
     # 5c. the S3TC full-width runs: 65,536 blocks each, default options

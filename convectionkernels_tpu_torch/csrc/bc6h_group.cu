@@ -32,7 +32,7 @@
 //
 // Bound on an H100: operations (about 2.4 million float32/int32 operations a
 // texture block at 12 rounds against 32 KB moved).
-#include "bc7_common.cuh"
+#include "bc6h_common.cuh"
 
 namespace {
 
@@ -48,76 +48,6 @@ struct Params {
     int member_bits[Q];
     int fixup[Q];
 };
-
-// lanes.twoscl_half_to_float
-__device__ __forceinline__ float twoscl_half_to_float(int v) {
-    unsigned abs_v = (unsigned)(v < 0 ? -v : v);
-    unsigned sign_bits = abs_v & 0xFFFF8000u;
-    unsigned mantissa = abs_v & 0x03FFu;
-    unsigned exponent = abs_v & 0x7C00u;
-    bool is_denormal = exponent == 0;
-    exponent = (exponent >> 3) + 14336u;
-    unsigned corr_bits = (is_denormal ? (sign_bits | 14336u) : 0u) << 16;
-    unsigned f_bits = ((exponent | sign_bits) << 16) | (mantissa << 13);
-    return __uint_as_float(f_bits) - __uint_as_float(corr_bits);
-}
-
-template <bool SIGNED>
-__device__ __forceinline__ int unscale_hdr(int v) {
-    if (SIGNED) {
-        bool negative = v < 0;
-        int abs_v = negative ? -v : v;
-        int scaled = (abs_v * 31) >> 5;
-        return negative ? (scaled | (-32768)) : scaled;
-    }
-    return (v * 31) >> 6;
-}
-
-template <bool SIGNED>
-__device__ __forceinline__ int quantize_element(int v, int precision) {
-    if (SIGNED) {
-        bool negative = v < 0;
-        int abs_elem = negative ? -v : v;
-        int q = ((abs_elem * 32 + 30) / 31) >> (16 - precision);
-        return negative ? -q : q;
-    }
-    int q = min((v * 64 + 30) / 31, 65535);
-    return q >> (16 - precision);
-}
-
-// unquantize_element: only the unquantized value feeds the slow path; the
-// finished value feeds the fast path's selector
-template <bool SIGNED>
-__device__ __forceinline__ void unquantize_element(int comp, int precision,
-                                                   int& unq, int& fin) {
-    if (SIGNED) {
-        bool negative = comp < 0;
-        int abs_comp = negative ? -comp : comp;
-        int abs_unq;
-        // partitioned groups have precision <= 11, so never the >= 16 case
-        int max_comp_m1 = (1 << (precision - 1)) - 2;
-        abs_unq = (abs_comp << (16 - precision)) + (0x4000 >> (precision - 1));
-        if (comp == 0) abs_unq = 0;
-        if (comp > max_comp_m1) abs_unq = 0x7FFF;
-        unq = negative ? -abs_unq : abs_unq;
-        int funq = (abs_unq * 31) >> 5;
-        fin = negative ? -funq : funq;
-    } else {
-        int max_comp_m1 = (1 << precision) - 2;
-        int u = (comp << (16 - precision)) + (0x8000 >> precision);
-        if (comp == 0) u = 0;
-        if (comp > max_comp_m1) u = 0xFFFF;
-        unq = u;
-        fin = (u * 31) >> 6;
-    }
-}
-
-// reconstruct_uninverted for one channel
-template <bool SIGNED>
-__device__ __forceinline__ int reconstruct(int ep0, int ep1, int weight) {
-    int px32 = ((64 - weight) * ep0 + weight * ep1 + 32) >> 6;
-    return unscale_hdr<SIGNED>(px32);
-}
 
 __device__ __forceinline__ int index_weight(int index) {
     return (WEIGHT_RECIPROCAL_8 * index + 256) >> 9;
@@ -141,7 +71,7 @@ bc6h_group_kernel(const int* __restrict__ pix, const float* __restrict__ base,
         int v = pix[n * 48 + q];
         float w = prm.cw[q % 3];
         float f = (float)v;
-        float tw = twoscl_half_to_float(v);
+        float tw = bc6h::twoscl_half_to_float(v);
         s_p2cl[q] = v;
         s_f2cl[q] = f;
         s_unw[q] = tw;
@@ -180,27 +110,14 @@ bc6h_group_kernel(const int* __restrict__ pix, const float* __restrict__ base,
                 eps_cs[3 + ch] = ck::round_int(ck::clampf(b[ch] + o[ch] * f1, lo, 31743.0f));
             }
         } else {
-            // get_refined_endpoints_hdr
-            float w = ck::safe_denom((float)refiner.wu);
-            float w_rcp = 1.0f / w;
-            float adenom = (refiner.tt * w - refiner.t * refiner.t) * w_rcp;
-            bool az = adenom == 0.0f;
-            if (az) adenom = 1.0f;
-            for (int ch = 0; ch < 3; ++ch) {
-                float a = (refiner.tv[ch] - refiner.t * refiner.v[ch] * w_rcp) / adenom;
-                float bb = (refiner.v[ch] - a * refiner.t) * w_rcp;
-                float p1 = az ? refiner.v[ch] * w_rcp : bb;
-                float p2 = az ? p1 : a + bb;
-                eps_cs[ch] = ck::round_int(ck::clampf(p1 * prm.rcp_cw[ch], lo, 31743.0f));
-                eps_cs[3 + ch] = ck::round_int(ck::clampf(p2 * prm.rcp_cw[ch], lo, 31743.0f));
-            }
+            bc6h::refined_endpoints_hdr(refiner, prm.rcp_cw, lo, eps_cs);
         }
         refiner.reset();
 
         int q_els[6], unq[6], fin[6];
         for (int j = 0; j < 6; ++j) {
-            q_els[j] = quantize_element<SIGNED>(eps_cs[j], aprec);
-            unquantize_element<SIGNED>(q_els[j], aprec, unq[j], fin[j]);
+            q_els[j] = bc6h::quantize_element<SIGNED>(eps_cs[j], aprec);
+            bc6h::unquantize_element<SIGNED, false>(q_els[j], aprec, unq[j], fin[j]);
         }
 
         // pass 1: uninverted index of every pixel (3 bits each, 48 bits in
@@ -228,7 +145,7 @@ bc6h_group_kernel(const int* __restrict__ pix, const float* __restrict__ base,
                 int w = index_weight(iv);
                 float e = 0.0f;
                 for (int ch = 0; ch < 3; ++ch) {
-                    int d = reconstruct<SIGNED>(unq[ch], unq[3 + ch], w) - s_p2cl[px * 3 + ch];
+                    int d = bc6h::reconstruct<SIGNED>(unq[ch], unq[3 + ch], w) - s_p2cl[px * 3 + ch];
                     float t = (float)(int)((unsigned)d * (unsigned)d);
                     if (!uniform) t = t * prm.cw_sq[ch];
                     e = ch == 0 ? t : e + t;
@@ -241,8 +158,8 @@ bc6h_group_kernel(const int* __restrict__ pix, const float* __restrict__ base,
             for (int r = 0; r < INDEX_RANGE; ++r) {
                 int w = index_weight(r);
                 for (int ch = 0; ch < 3; ++ch) {
-                    float v = twoscl_half_to_float(
-                        reconstruct<SIGNED>(unq[ch], unq[3 + ch], w));
+                    float v = bc6h::twoscl_half_to_float(
+                        bc6h::reconstruct<SIGNED>(unq[ch], unq[3 + ch], w));
                     interp[ch][r] = v;
                     interp_w[ch][r] = v * prm.cw[ch];
                 }

@@ -4,7 +4,7 @@ Each source compiles on its own with nvcc into a shared library with a
 plain C interface (no PyTorch headers, so a build takes seconds), loaded
 with ctypes. A library is built at first use into build/torch_kernels/
 of the checkout, under a name keyed by a hash of its source, the shared
-header and the flags, so an edited source is rebuilt and an unchanged one
+headers and the flags, so an edited source is rebuilt and an unchanged one
 is loaded as it is. `build_all` starts one nvcc per source, all at once,
 and times them as one build of the tracer (`kernel_build`).
 
@@ -30,8 +30,8 @@ CSRC = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "torch_kernels")
 
 SOURCES = ("shape_pca", "single_plane", "dual_plane", "bc6h_group",
-           "bc6h_combine", "exact_probe")
-HEADERS = ("bc7_common.cuh",)
+           "bc6h_single", "bc6h_combine", "exact_probe")
+HEADERS = ("bc7_common.cuh", "bc6h_common.cuh")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -56,6 +56,9 @@ SIGNATURES = {
     "bc6h_group": ("ck_bc6h_group",
                    [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P,
                     _P, _P, _P]),
+    "bc6h_single": ("ck_bc6h_single",
+                    [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P, _P,
+                     _P, _P, _P]),
     "bc6h_combine": ("ck_bc6h_combine",
                      [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _P, _P, _P,
                       _P, _P, _P, _P, _P, _P]),

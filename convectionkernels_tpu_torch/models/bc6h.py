@@ -7,12 +7,13 @@ sequential because the endpoint dedup couples rounds in visitation order;
 the meta0 x meta1 x mode legality cross-product (BC67.cpp:2914-2986) is
 reduced to its least (error, visitation rank) candidate.
 
-The six partitioned precision groups run their chain in the CUDA kernel of
-models/bc6h_kernel.py (its plain version on the CPU); the four single-mode
-groups (one row, 16 index values) run the same chain as tensor code. Every
-group's combine is the other kernel of models/bc6h_kernel.py. The rest runs
-as PyTorch ops on the tensors' device: pixel preparation, the PCA over the
-65 pixel sets and the bit packing.
+Every precision group runs its chain in a CUDA kernel of
+models/bc6h_kernel.py (its plain version on the CPU), chosen by the group's
+shape: the six partitioned groups (64 rows, 8 index values) in one, the
+four single-mode groups (one row, 16 index values) in another. Every
+group's combine is the third kernel there. The rest runs as PyTorch ops on
+the tensors' device: pixel preparation, the PCA over the 65 pixel sets and
+the bit packing.
 
 All float math follows the scalar reference build (ops/lanes.py); HDR
 values use the internal two's-complement half representation (2CL) with
@@ -100,8 +101,11 @@ def pack(pixels_f16bits, flags: int, channel_weights, is_signed: bool,
     pix = prepare_pixels(pixels_f16bits, is_signed)
     n, dev = pix.shape[0], pix.device
     if dev.type == "cuda":
-        cuda_lib.build_all(bc6h_kernel.LIBRARIES)   # both nvcc runs at once
+        cuda_lib.build_all(bc6h_kernel.LIBRARIES)   # the nvcc runs at once
     ufep_base, ufep_offset = pca_lines(pix, cw)
+    # the whole block's line (column 64), [N, 3], for the single-mode groups
+    block_base = torch.stack([b[:, 64] for b in ufep_base], dim=1)
+    block_offset = torch.stack([o[:, 64] for o in ufep_offset], dim=1)
 
     best = LexBest.empty((n,), {
         "mode": (), "partition": (),
@@ -127,13 +131,10 @@ def pack(pixels_f16bits, flags: int, channel_weights, is_signed: bool,
                 num_refine_rounds)
             del base, offset
         else:
-            err, valid, eps, idx = bc6h_common.meta_round_chain(
-                pix, [b[:, 64:65] for b in ufep_base],
-                [o[:, 64:65] for o in ufep_offset], aprec, is_signed,
+            err, valid, eps, idx = bc6h_kernel.single_group_meta_rounds(
+                pix, block_base, block_offset, aprec, is_signed,
                 fast_indexing, uniform, cw, num_tweak_rounds,
-                num_refine_rounds, 16,
-                torch.ones((1, 16), dtype=torch.bool, device=dev),
-                torch.zeros((1,), dtype=torch.int64, device=dev))
+                num_refine_rounds)
         win_err, win_rank, payload = bc6h_kernel.combine(
             err, valid, eps, idx, aprec, mode_list, meta_ids, rank_base)
         del err, valid, eps, idx

@@ -1,6 +1,6 @@
-"""BC6H pieces shared by the encoder (models/bc6h.py) and the plain version
-of its kernel (models/bc6h_kernel.py): the mode table, the HDR endpoint
-quantizer, and the meta-round chain of one precision group.
+"""BC6H pieces shared by the encoder (models/bc6h.py) and the plain versions
+of its chain kernels (models/bc6h_kernel.py): the mode table, the HDR
+endpoint quantizer, and the meta-round chain of one precision group.
 
 The chain is the tweak x refine loop of BC6HComputer::Pack
 (ConvectionKernels_BC67.cpp:2794-2911) for every (partition, subset) row q

@@ -1,14 +1,17 @@
 """The BC6H kernels: the meta-round chain of one partitioned precision
-group, and the combine of one precision group's rounds.
+group, the same chain of one single-mode precision group, and the combine
+of one precision group's rounds.
 
   partitioned_group_meta_rounds  <- convectionkernels_tpu
                                     bc6h_kernel.partitioned_group_meta_rounds
+  single_group_meta_rounds       <- no TPU kernel (XLA ops in the JAX
+                                    package's models/bc6h.py)
   combine                        <- no TPU kernel (XLA ops in the JAX
                                     package's models/bc6h.py)
 
-Each wrapper launches its kernel (csrc/bc6h_group.cu, csrc/bc6h_combine.cu)
-for a CUDA tensor and takes its plain PyTorch version for a CPU tensor;
-there is no other switch and no fallback.
+Each wrapper launches its kernel (csrc/bc6h_group.cu, csrc/bc6h_single.cu,
+csrc/bc6h_combine.cu) for a CUDA tensor and takes its plain PyTorch version
+for a CPU tensor; there is no other switch and no fallback.
 
 partitioned_group_meta_rounds computes, for the 64 (partition, subset) rows
 of a block (subset-major: q = subset * 32 + partition) and every tweak x
@@ -28,6 +31,13 @@ Bound on an H100: operations. A block reads 1.7 KB and writes 30 KB at 12
 rounds, about 10 ns of memory time at 3.35 TB/s, against about 2.4 million
 float32 and int32 operations, about 35 ns at 67 Tops/s (chip_smoke.py's
 work model has the counts).
+
+single_group_meta_rounds is the same chain for the one row of a
+single-mode group: every pixel a member, fixup pixel 0, 16 index values.
+The two groups' shapes conflict (64 rows of 3-bit indexes, a thread each;
+one row of 16 interpolants, spread over 16 lanes), so they have separate
+kernels over shared scalar helpers (csrc/bc6h_common.cuh), chosen by the
+group's shape in models/bc6h.py. csrc/bc6h_single.cu says what bounds it.
 
 combine takes the chain's outputs of one group and returns the group's
 least (error, visitation rank) candidate over (partition, meta0, meta1)
@@ -49,6 +59,7 @@ import torch
 
 from .. import cuda_lib, programs
 from ..ops import lanes
+from ..ops.index_select import WEIGHT_RECIPROCALS
 from ..tables import bc7_geometry as geom
 from . import bc6h_common
 from .bc6h_common import HDR_MODES
@@ -57,10 +68,12 @@ from .bc7_kernel import _check_tensor
 
 Q = 64            # (partition, subset) rows of a partitioned group
 INDEX_RANGE = 8   # 3-bit indexes
+SINGLE_INDEX_RANGE = 16   # the 4-bit indexes of a single-mode group
+SINGLE_APRECS = (10, 11, 12, 16)
 MAX_META = bc6h_common.MAX_TWEAK_ROUNDS * bc6h_common.MAX_REFINE_ROUNDS
 
 # The libraries of csrc/ that BC6H launches.
-LIBRARIES = ("bc6h_group", "bc6h_combine")
+LIBRARIES = ("bc6h_group", "bc6h_single", "bc6h_combine")
 
 # Launches of the CUDA kernels, counted where the wrappers launch them (and
 # by a program's replay, for the launches its graph holds).
@@ -84,22 +97,41 @@ def _subset_tables():
 SUBSET_MEMBER, SUBSET_FIXUPS = _subset_tables()
 
 
-def _launch_constants(cw):
-    """The constants of a launch as C arrays (csrc/bc6h_group.cu, Params):
-    18 floats (cw, cw^2 and 1/cw per channel, the tweak factor pairs of the
-    4 tweaks, 1/(range-1)) and 128 ints (member bits, fixup pixel per q)."""
+def _launch_floats(cw, index_range):
+    """The 18 floats of a chain kernel's launch (csrc/bc6h_group.cu and
+    csrc/bc6h_single.cu, Params): cw, cw^2 and 1/cw per channel, the tweak
+    factor pairs of the 4 tweaks at `index_range`, 1/(range-1)."""
     w = [np.float32(c) for c in cw[:3]]
-    tweaks = [lanes.compute_tweak_factors(t, INDEX_RANGE)
+    tweaks = [lanes.compute_tweak_factors(t, index_range)
               for t in range(bc6h_common.MAX_TWEAK_ROUNDS)]
     floats = (w + [c * c for c in w]
               + [np.float32(1.0) if c == 0.0 else np.float32(1.0) / c
                  for c in w]
               + [t[0] for t in tweaks] + [t[1] for t in tweaks]
-              + [np.float32(1.0) / np.float32(INDEX_RANGE - 1)])
+              + [np.float32(1.0) / np.float32(index_range - 1)])
+    return (ctypes.c_float * 18)(*[float(f) for f in floats])
+
+
+def _launch_constants(cw):
+    """The constants of a partitioned group's launch as C arrays: the 18
+    floats at index range 8 and 128 ints (member bits, fixup pixel per q)."""
     bits = (SUBSET_MEMBER.astype(np.int64) << np.arange(16)).sum(axis=1)
     ints = [int(b) for b in bits] + [int(f) for f in SUBSET_FIXUPS]
-    return ((ctypes.c_float * 18)(*[float(f) for f in floats]),
-            (ctypes.c_int * (2 * Q))(*ints))
+    return _launch_floats(cw, INDEX_RANGE), (ctypes.c_int * (2 * Q))(*ints)
+
+
+def _single_launch_constants(cw):
+    """The constants of a single-mode group's launch: the 18 floats at
+    index range 16 and the weight reciprocal of range 16."""
+    return (_launch_floats(cw, SINGLE_INDEX_RANGE),
+            int(WEIGHT_RECIPROCALS[SINGLE_INDEX_RANGE]))
+
+
+def _check_rounds(num_tweak_rounds, num_refine_rounds):
+    if not (1 <= num_tweak_rounds <= bc6h_common.MAX_TWEAK_ROUNDS
+            and 1 <= num_refine_rounds <= bc6h_common.MAX_REFINE_ROUNDS):
+        raise ValueError(f"rounds out of range: {num_tweak_rounds} x "
+                         f"{num_refine_rounds}")
 
 
 def partitioned_group_meta_rounds(pix, base, offset, aprec, is_signed,
@@ -124,10 +156,7 @@ def partitioned_group_meta_rounds(pix, base, offset, aprec, is_signed,
             pix, base, offset, aprec, is_signed, fast_indexing, uniform, cw,
             num_tweak_rounds, num_refine_rounds)
     n, dev = pix.shape[0], pix.device
-    if not (1 <= num_tweak_rounds <= bc6h_common.MAX_TWEAK_ROUNDS
-            and 1 <= num_refine_rounds <= bc6h_common.MAX_REFINE_ROUNDS):
-        raise ValueError(f"rounds out of range: {num_tweak_rounds} x "
-                         f"{num_refine_rounds}")
+    _check_rounds(num_tweak_rounds, num_refine_rounds)
     if not 6 <= aprec <= 11:
         raise ValueError(f"aprec {aprec} is not a partitioned group's")
     _check_tensor("pix", pix, I32, (n, 48), dev)
@@ -179,6 +208,70 @@ def partitioned_group_meta_rounds_plain(pix, base, offset, aprec, is_signed,
     return err, valid, eps, pack_indexes(idx)
 
 
+def single_group_meta_rounds(pix, base, offset, aprec, is_signed,
+                             fast_indexing, uniform, cw, num_tweak_rounds,
+                             num_refine_rounds):
+    """Every meta round of one single-mode precision group: its one row,
+    every pixel a member, fixup pixel 0, 4-bit indexes.
+
+    Args:
+      pix: [N, 48] int32 clamped 2CL pixels (px*3 + ch).
+      base, offset: [N, 3] float32, the PCA line of the whole block.
+      aprec: the group's endpoint precision (10, 11, 12 or 16).
+      cw: channel weights (the first 3 are used).
+      num_tweak_rounds (1..4), num_refine_rounds (1..3): A = their product.
+
+    Returns (err [N, A, 1] float32, valid [N, A, 1] int32, eps [N, A, 6, 1]
+    int32 stored endpoints, idx [N, A, 16, 1] int32 stored indexes), rounds
+    in tweak-major order: what combine takes for a single-mode group.
+    """
+    _check_rounds(num_tweak_rounds, num_refine_rounds)
+    if aprec not in SINGLE_APRECS:
+        raise ValueError(f"aprec {aprec} is not a single-mode group's")
+    if pix.device.type == "cpu":
+        return single_group_meta_rounds_plain(
+            pix, base, offset, aprec, is_signed, fast_indexing, uniform, cw,
+            num_tweak_rounds, num_refine_rounds)
+    n, dev = pix.shape[0], pix.device
+    _check_tensor("pix", pix, I32, (n, 48), dev)
+    _check_tensor("base", base, F32, (n, 3), dev)
+    _check_tensor("offset", offset, F32, (n, 3), dev)
+    a_count = num_tweak_rounds * num_refine_rounds
+    err = torch.empty((n, a_count, 1), dtype=F32, device=dev)
+    valid = torch.empty((n, a_count, 1), dtype=I32, device=dev)
+    eps = torch.empty((n, a_count, 6, 1), dtype=I32, device=dev)
+    idx = torch.empty((n, a_count, SINGLE_INDEX_RANGE, 1), dtype=I32,
+                      device=dev)
+    if n == 0:
+        return err, valid, eps, idx
+    fn = cuda_lib.function("bc6h_single")
+    floats, weight_reciprocal = _single_launch_constants(cw)
+    code = fn(pix.data_ptr(), base.data_ptr(), offset.data_ptr(), n, aprec,
+              int(is_signed), int(fast_indexing), int(uniform),
+              num_tweak_rounds, num_refine_rounds, floats, weight_reciprocal,
+              err.data_ptr(), valid.data_ptr(), eps.data_ptr(),
+              idx.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    cuda_lib.check(code, f"single_group_meta_rounds(aprec {aprec})")
+    LAUNCHES["single_group_meta_rounds"] += 1
+    return err, valid, eps, idx
+
+
+def single_group_meta_rounds_plain(pix, base, offset, aprec, is_signed,
+                                   fast_indexing, uniform, cw,
+                                   num_tweak_rounds, num_refine_rounds):
+    """Plain PyTorch version of single_group_meta_rounds (same signature),
+    on the device of its tensors: the chain with index range 16, every
+    pixel a member and fixup pixel 0."""
+    dev = pix.device
+    return bc6h_common.meta_round_chain(
+        pix, [base[:, ch:ch + 1] for ch in range(3)],
+        [offset[:, ch:ch + 1] for ch in range(3)], aprec, is_signed,
+        fast_indexing, uniform, cw, num_tweak_rounds, num_refine_rounds,
+        SINGLE_INDEX_RANGE,
+        torch.ones((1, 16), dtype=torch.bool, device=dev),
+        torch.zeros((1,), dtype=torch.int64, device=dev))
+
+
 def _truncate_signed(v, precision):
     """Scalar TruncateToPrecisionSigned (ParallelMath.h:1410-1414);
     `precision` is an int or an int32 tensor broadcastable against v."""
@@ -208,7 +301,7 @@ def combine(err, valid, eps, idx, aprec, mode_list, meta_ids, rank_base):
         and idx: the chain's outputs over the M rounds `meta_ids` (in
         visitation order), Q = 64 for a partitioned group (idx [N, M, 2, 64]
         packed words, partitioned_group_meta_rounds) and Q = 1 for a
-        single-mode group (idx [N, M, 16, 1], bc6h_common.meta_round_chain).
+        single-mode group (idx [N, M, 16, 1], single_group_meta_rounds).
       aprec, mode_list: the group's endpoint precision and its modes
         (indexes into HDR_MODES).
       rank_base: the visitation rank of the group's first candidate.

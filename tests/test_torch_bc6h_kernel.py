@@ -323,17 +323,112 @@ def test_plain_matches_pallas_interpret(case):
         assert step.max() == 1, (block, q, step)
 
 
-def test_wrapper_takes_any_n_and_counts_no_cpu_launch():
+def single_inputs(px_bits, is_signed):
+    """(pix [N, 48] int32, base, offset [N, 3] float32) as the port's
+    encoder hands them to the single-mode kernel, and the chain's own
+    arguments (the whole block's line, column 64 of each channel)."""
+    cw = [float(w) for w in CW[:3]]
+    pix = port_bc6h.prepare_pixels(torch.as_tensor(px_bits), is_signed)
+    ufep_base, ufep_offset = port_bc6h.pca_lines(pix, cw)
+    base = torch.stack([b[:, 64] for b in ufep_base], dim=1)
+    offset = torch.stack([o[:, 64] for o in ufep_offset], dim=1)
+    return pix, base, offset, ([b[:, 64:65] for b in ufep_base],
+                               [o[:, 64:65] for o in ufep_offset])
+
+
+@pytest.mark.parametrize("group", ["partitioned", "single"])
+def test_wrapper_takes_any_n_and_counts_no_cpu_launch(group):
     px = hdr_blocks(12, seed=43)[:5]
-    pix, base, offset = group_inputs(px, False)
-    before = bc6h_kernel.LAUNCHES["partitioned_group_meta_rounds"]
-    err, valid, eps, idx = bc6h_kernel.partitioned_group_meta_rounds(
-        pix, base, offset, 9, False, False, False, CW, 1, 3)
-    assert err.shape == (5, 3, 64) and valid.shape == (5, 3, 64)
-    assert eps.shape == (5, 3, 6, 64) and idx.shape == (5, 3, 2, 64)
-    assert bc6h_kernel.LAUNCHES["partitioned_group_meta_rounds"] == before
+    if group == "single":
+        pix, base, offset, _ = single_inputs(px, False)
+        run, aprec, rows, idx_words = (bc6h_kernel.single_group_meta_rounds,
+                                       12, 1, 16)
+        name = "single_group_meta_rounds"
+    else:
+        pix, base, offset = group_inputs(px, False)
+        run, aprec, rows, idx_words = (
+            bc6h_kernel.partitioned_group_meta_rounds, 9, 64, 2)
+        name = "partitioned_group_meta_rounds"
+    before = dict(bc6h_kernel.LAUNCHES)
+    err, valid, eps, idx = run(pix, base, offset, aprec, False, False, False,
+                               CW, 1, 3)
+    assert err.shape == (5, 3, rows) and valid.shape == (5, 3, rows)
+    assert eps.shape == (5, 3, 6, rows)
+    assert idx.shape == (5, 3, idx_words, rows)
+    assert dict(bc6h_kernel.LAUNCHES) == before
+    assert bc6h_kernel.LAUNCHES[name] == before.get(name, 0)
     # each block's rows depend on that block alone
-    one = bc6h_kernel.partitioned_group_meta_rounds(
-        pix[2:3], base[2:3], offset[2:3], 9, False, False, False, CW, 1, 3)
+    one = run(pix[2:3], base[2:3], offset[2:3], aprec, False, False, False,
+              CW, 1, 3)
     for whole, part in zip((err, valid, eps, idx), one):
         assert_bits_equal(whole[2:3].numpy(), part.numpy(), "block 2")
+
+
+# --- the single-mode groups' kernel ----------------------------------------------
+
+def test_single_launch_constants_equal_the_jax_packages():
+    """The range-16 constants the wrapper hands csrc/bc6h_single.cu: the
+    weight reciprocal of 16, the tweak factor pairs of the 4 tweaks at
+    range 16 and 1/15, as the JAX package computes them; the channel
+    weights' floats as a partitioned group's launch has them."""
+    from convectionkernels_tpu.ops.index_select import (
+        WEIGHT_RECIPROCALS as JAX_WEIGHT_RECIPROCALS)
+    floats, weight_reciprocal = bc6h_kernel._single_launch_constants(CW)
+    assert weight_reciprocal == JAX_WEIGHT_RECIPROCALS[16] == 2185
+    got = np.array(floats[:], dtype=np.float32)
+    tweaks = [jax_lanes.compute_tweak_factors(t, 16) for t in range(4)]
+    want_tweaks = np.array([t[0] for t in tweaks] + [t[1] for t in tweaks],
+                           dtype=np.float32)
+    assert_bits_equal(got[9:17], want_tweaks, "tweak factors at range 16")
+    rcp = JaxRefiner(jnp.zeros((1,), dtype=jnp.float32), 3, 16,
+                     CW).rcp_max_index
+    assert_bits_equal(got[17:18], np.array([rcp], dtype=np.float32),
+                      "1/15")
+    partitioned, _ = bc6h_kernel._launch_constants(CW)
+    assert_bits_equal(got[:9], np.array(partitioned[:9], dtype=np.float32),
+                      "channel weights")
+
+
+SINGLE_CASES = [(aprec, signed, fast) for aprec in (16, 12, 11, 10)
+                for signed in (False, True) for fast in (False, True)]
+
+
+@pytest.mark.parametrize("case", SINGLE_CASES, ids=[
+    f"aprec{a}_{'signed' if s else 'unsigned'}_{'fast' if f else 'slow'}"
+    for a, s, f in SINGLE_CASES])
+def test_single_wrapper_on_cpu_is_the_chain(case):
+    """On the CPU the wrapper returns meta_round_chain's outputs for the
+    block's one row (index range 16, every pixel a member, fixup pixel 0)
+    as the encoder called it before the kernel, at N = 0, 1 and 37, and
+    launches nothing."""
+    aprec, is_signed, fast = case
+    px_all = (hdr_signed_blocks(40, seed=61) if is_signed
+              else hdr_blocks(40, seed=67))
+    for n in (0, 1, 37):
+        pix, base, offset, (cols_b, cols_o) = single_inputs(px_all[:n],
+                                                            is_signed)
+        before = dict(bc6h_kernel.LAUNCHES)
+        got = bc6h_kernel.single_group_meta_rounds(
+            pix, base, offset, aprec, is_signed, fast, False, CW, 4, 3)
+        assert dict(bc6h_kernel.LAUNCHES) == before
+        want = bc6h_common.meta_round_chain(
+            pix, cols_b, cols_o, aprec, is_signed, fast, False, CW, 4, 3, 16,
+            torch.ones((1, 16), dtype=torch.bool),
+            torch.zeros((1,), dtype=torch.int64))
+        shapes = ((n, 12, 1), (n, 12, 1), (n, 12, 6, 1), (n, 12, 16, 1))
+        for name, g, w, shape in zip(NAMES, got, want, shapes):
+            assert tuple(g.shape) == shape, (name, n)
+            assert g.dtype == w.dtype, (name, n)
+            assert_bits_equal(g.numpy(), w.numpy(), f"{name} at N = {n}")
+
+
+def test_single_wrapper_refuses_bad_values():
+    px = hdr_blocks(4, seed=71)
+    pix, base, offset, _ = single_inputs(px, False)
+    run = bc6h_kernel.single_group_meta_rounds
+    for aprec in (9, 13, 15, 17):
+        with pytest.raises(ValueError):
+            run(pix, base, offset, aprec, False, False, False, CW, 4, 3)
+    for rounds in ((0, 3), (5, 3), (4, 0), (4, 4)):
+        with pytest.raises(ValueError):
+            run(pix, base, offset, 16, False, False, False, CW, *rounds)

@@ -28,6 +28,7 @@ from tests.test_torch_goldens import (BC6H_CASES, BC6H_FAST, DEFAULT,
                                       ETC_CASES, FAST,
                                       LIGHT, LIGHT_CASES, PUNCH, S3TC_CASES,
                                       UNIFORM, hdr_blocks, hdr_edge_blocks,
+                                      hdr_signed_blocks,
                                       load_bc6h, load_etc, load_light,
                                       load_q50, load_s3tc,
                                       punch_through_blocks, signed_blocks)
@@ -357,6 +358,7 @@ def test_encode_bc6h_on_card(card, case):
     assert got.device.type == "cuda"        # device=None: the card
     np.testing.assert_array_equal(got.cpu().numpy(), blocks)
     assert bc6h_kernel.LAUNCHES["partitioned_group_meta_rounds"] == 6
+    assert bc6h_kernel.LAUNCHES["single_group_meta_rounds"] == 4
     assert bc6h_kernel.LAUNCHES["combine"] == 10
 
 
@@ -376,6 +378,144 @@ def test_bc6h_wrapper_checks_its_inputs(card):
     with pytest.raises(ValueError):
         run(pix, line, line, 16, False, False, False, cw, 4, 3)
 
+
+
+# --- BC6H's single-mode groups: the kernel against its plain version ------------
+
+SINGLE_APRECS = (16, 12, 11, 10)
+
+
+def extreme_hdr_blocks(is_signed):
+    """Blocks at the ends of the clamped 2CL range: all 0, all 31743 (the
+    largest finite half), all -31743 when signed, and the two mixed."""
+    top = np.int16(0x7BFF)
+    bottom = np.array(0xFBFF, dtype=np.uint16).view(np.int16)[()]
+    values = [np.int16(0), top] + ([bottom] if is_signed else [])
+    blocks = [np.full((16, 4), v, dtype=np.int16) for v in values]
+    for low in values[:1] + values[2:]:
+        mixed = np.full((16, 4), top, dtype=np.int16)
+        mixed[::2] = low
+        blocks.append(mixed)
+    return np.stack(blocks)
+
+
+def single_chain_inputs(px, is_signed, cw, card):
+    pix = bc6h.prepare_pixels(torch.as_tensor(px, device=card), is_signed)
+    ufep_base, ufep_offset = bc6h.pca_lines(pix, cw)
+    return (pix, torch.stack([b[:, 64] for b in ufep_base], 1).contiguous(),
+            torch.stack([o[:, 64] for o in ufep_offset], 1).contiguous())
+
+
+@pytest.mark.parametrize("fast", [False, True], ids=["slow", "fast"])
+@pytest.mark.parametrize("signed", [False, True], ids=["unsigned", "signed"])
+def test_bc6h_single_matches_plain_on_golden_chains(card, signed, fast,
+                                                    monkeypatch):
+    """Every single-mode group of a pack of the blocks of every stored
+    BC6H golden of that signedness, at 4 x 3 and 1 x 1 rounds: one launch
+    each, its four outputs bit-equal to the plain version's."""
+    px = np.concatenate([load_bc6h(c[0])[0] for c in BC6H_CASES
+                         if c[2] == signed])
+    real, seen = bc6h_kernel.single_group_meta_rounds, []
+
+    def checked(*args):
+        before = bc6h_kernel.LAUNCHES["single_group_meta_rounds"]
+        got = real(*args)
+        assert bc6h_kernel.LAUNCHES["single_group_meta_rounds"] == before + 1
+        want = bc6h_kernel.single_group_meta_rounds_plain(*args)
+        for name, a, b in zip(("err", "valid", "eps", "idx"), got, want):
+            assert a.dtype == b.dtype and same_bits(a, b), (args[3], name)
+        seen.append(args[3])
+        return got
+
+    monkeypatch.setattr(bc6h_kernel, "single_group_meta_rounds", checked)
+    opts = ckt.Options(flags=DEFAULT | (BC6H_FAST if fast else 0))
+    for rounds in ((4, 3), (1, 1)):
+        bc6h.pack(torch.as_tensor(px, device=card), opts.flags,
+                  opts.channel_weights(), signed, *rounds)
+    assert seen == list(SINGLE_APRECS) * 2
+
+
+SINGLE_KERNEL_CASES = [(aprec, signed, fast) for aprec in SINGLE_APRECS
+                       for signed in (False, True) for fast in (False, True)]
+
+
+@pytest.mark.parametrize("case", SINGLE_KERNEL_CASES, ids=[
+    f"aprec{a}_{'signed' if s else 'unsigned'}_{'fast' if f else 'slow'}"
+    for a, s, f in SINGLE_KERNEL_CASES])
+def test_bc6h_single_matches_plain_synthetic(card, case):
+    """Ordinary, edge-value and range-end blocks (0, 31743 and, signed,
+    -31743), 1,024 + a few of them (no multiple of the 4 blocks a CUDA
+    block holds), at every rounds setting 1..4 x 1..3, weighted and
+    uniform: all four outputs bit-equal to the plain version's; then 1, 2
+    and 5 blocks, and the plain version on the CPU."""
+    aprec, is_signed, fast = case
+    px = np.concatenate([hdr_signed_blocks(600, seed=81) if is_signed
+                         else hdr_blocks(600, seed=83),
+                         hdr_edge_blocks(424, seed=85),
+                         extreme_hdr_blocks(is_signed)])
+    assert px.shape[0] % 4 != 0
+    for uniform in (False, True):
+        opts = ckt.Options(flags=ckt.Flags.UNIFORM if uniform else 0)
+        cw = [float(np.float32(w)) for w in opts.channel_weights()[:3]]
+        pix, base, offset = single_chain_inputs(px, is_signed, cw, card)
+        for tweaks in range(1, 5):
+            for refines in range(1, 4):
+                call = (pix, base, offset, aprec, is_signed, fast, uniform,
+                        cw, tweaks, refines)
+                before = bc6h_kernel.LAUNCHES["single_group_meta_rounds"]
+                got = bc6h_kernel.single_group_meta_rounds(*call)
+                torch.cuda.synchronize()
+                assert bc6h_kernel.LAUNCHES["single_group_meta_rounds"] == \
+                    before + 1
+                want = bc6h_kernel.single_group_meta_rounds_plain(*call)
+                for name, a, b in zip(("err", "valid", "eps", "idx"), got,
+                                      want):
+                    assert a.dtype == b.dtype and same_bits(a, b), \
+                        (uniform, tweaks, refines, name)
+    for n in (1, 2, 5):
+        call = (pix[:n].contiguous(), base[:n].contiguous(),
+                offset[:n].contiguous(), aprec, is_signed, fast, uniform, cw,
+                4, 3)
+        got = bc6h_kernel.single_group_meta_rounds(*call)
+        want = bc6h_kernel.single_group_meta_rounds_plain(*call)
+        for name, a, b in zip(("err", "valid", "eps", "idx"), got, want):
+            assert same_bits(a, b), (n, name)
+    cpu = bc6h_kernel.single_group_meta_rounds(
+        pix.cpu(), base.cpu(), offset.cpu(), aprec, is_signed, fast, uniform,
+        cw, 4, 3)
+    got = bc6h_kernel.single_group_meta_rounds(
+        pix, base, offset, aprec, is_signed, fast, uniform, cw, 4, 3)
+    for name, a, b in zip(("err", "valid", "eps", "idx"), got, cpu):
+        assert same_bits(a.cpu(), b), name
+    # the rounds do repeat endpoints here, so the dedup is exercised
+    valid = got[1]
+    assert 0 < int(valid.sum()) < valid.numel()
+
+
+def test_bc6h_single_wrapper_checks_its_inputs(card):
+    pix = torch.zeros((4, 48), dtype=torch.int32, device=card)
+    line = torch.zeros((4, 3), dtype=torch.float32, device=card)
+    cw = ckt.Options().channel_weights()
+    run = bc6h_kernel.single_group_meta_rounds
+    with pytest.raises(TypeError):
+        run(pix.float(), line, line, 16, False, False, False, cw, 4, 3)
+    with pytest.raises(TypeError):
+        run(pix, line.double(), line, 16, False, False, False, cw, 4, 3)
+    with pytest.raises(ValueError):
+        run(pix, line[:, :2], line, 16, False, False, False, cw, 4, 3)
+    with pytest.raises(ValueError):
+        run(pix, line, line.cpu(), 16, False, False, False, cw, 4, 3)
+    with pytest.raises(ValueError):
+        run(pix, line.t().contiguous().t(), line, 16, False, False, False,
+            cw, 4, 3)
+    with pytest.raises(ValueError):
+        run(pix, line, line, 16, False, False, False, cw, 5, 3)
+    with pytest.raises(ValueError):
+        run(pix, line, line, 9, False, False, False, cw, 4, 3)
+    before = bc6h_kernel.LAUNCHES["single_group_meta_rounds"]
+    out = run(pix[:0], line[:0], line[:0], 16, False, False, False, cw, 4, 3)
+    assert out[3].shape == (0, 12, 16, 1)
+    assert bc6h_kernel.LAUNCHES["single_group_meta_rounds"] == before
 
 # --- BC6H's combine: the kernel against its plain version ---------------------------
 
@@ -477,7 +617,8 @@ def test_bc6h_combine_checks_its_inputs(card):
 
 def test_bc6h_replayed_program_equals_its_first_call(card):
     """encode_bc6hu's first call (op by op), capture and replays give the
-    same bytes, the golden's; each replay counts 10 combine launches."""
+    same bytes, the golden's; each call counts 6 partitioned-chain, 4
+    single-chain and 10 combine launches."""
     programs.release_programs()
     try:
         (case,) = [c for c in BC6H_CASES if c[0] == "default"]
@@ -491,6 +632,7 @@ def test_bc6h_replayed_program_equals_its_first_call(card):
             torch.cuda.synchronize()
             assert bc6h_kernel.LAUNCHES["combine"] == 10
             assert bc6h_kernel.LAUNCHES["partitioned_group_meta_rounds"] == 6
+            assert bc6h_kernel.LAUNCHES["single_group_meta_rounds"] == 4
         for out in outs:
             np.testing.assert_array_equal(out.cpu().numpy(), blocks)
         assert graph_captures() == [1]

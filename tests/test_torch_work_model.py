@@ -273,3 +273,36 @@ def test_pca_chunk_sweep_launches_each_chunk_at_each_length(monkeypatch):
     assert calls == [(s, nch, int(nch == 3), chunk, nch == 3)
                      for nch in (3, 4) for s in (1, 81, 243)
                      for chunk in (1, 2, 4)]
+
+
+def single_group_args(n, is_signed=False, fast=False, uniform=False,
+                      tweaks=4, refines=3):
+    """The argument tuple of bc6h_kernel.single_group_meta_rounds at n
+    blocks."""
+    return (torch.zeros((n, 48), dtype=torch.int32), torch.zeros((n, 3)),
+            torch.zeros((n, 3)), 16, is_signed, fast, uniform, [1.0] * 3,
+            tweaks, refines)
+
+
+def test_bc6h_single_is_linear_in_blocks_and_counts_its_outputs():
+    for kw in ({}, {"fast": True}, {"is_signed": True, "uniform": True},
+               {"tweaks": 1, "refines": 1}):
+        nbytes, ops = chip_smoke.work_bc6h_single(single_group_args(1, **kw))
+        rounds = kw.get("tweaks", 4) * kw.get("refines", 3)
+        # pixels and the block's line in; err, valid, 6 endpoints and 16
+        # indexes a round out
+        assert nbytes == 48 * 4 + 6 * 4 + rounds * 24 * 4
+        for n in (2, 37, 65536):
+            assert chip_smoke.work_bc6h_single(single_group_args(n, **kw)) \
+                == (n * nbytes, n * ops)
+
+
+def test_bc6h_single_slow_scan_outweighs_fast_projection():
+    """The slow path scans 16 interpolants a pixel, the fast one projects
+    once; weighting adds a multiply per channel and pixel; refine rounds
+    add the refiner's totals and solve."""
+    def ops(**kw):
+        return chip_smoke.work_bc6h_single(single_group_args(1, **kw))[1]
+    assert ops(fast=False) > 3 * ops(fast=True)
+    assert ops() - ops(uniform=True) == 12 * 16 * 3
+    assert ops(tweaks=1, refines=2) - ops(tweaks=2, refines=1) > 16 * 26 - 7
