@@ -6,7 +6,8 @@ with ctypes. A library is built at first use into build/torch_kernels/
 of the checkout, under a name keyed by a hash of its source, the shared
 headers and the flags, so an edited source is rebuilt and an unchanged one
 is loaded as it is. `build_all` starts one nvcc per source, all at once,
-and times them as one build of the tracer (`kernel_build`).
+and times them as one build of the tracer (`kernel_build`). Every kernel
+is launched through `launch`, on the current stream.
 
 Exactness flags: the encoder is held byte for byte against its reference,
 so the kernels are compiled without FMA contraction, with IEEE divide and
@@ -16,6 +17,7 @@ sqrt, and with subnormals kept — the semantics of eager PyTorch on the CPU.
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -29,8 +31,9 @@ _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "torch_kernels")
 
-SOURCES = ("shape_pca", "single_plane", "dual_plane", "bc6h_group",
-           "bc6h_single", "bc6h_combine", "exact_probe")
+# csrc/<name>.cu holds <name>_kernel; each builds into a library <name>
+SOURCES = tuple(sorted(os.path.basename(p)[:-len(".cu")]
+                       for p in glob.glob(os.path.join(CSRC, "*.cu"))))
 HEADERS = ("bc7_common.cuh", "bc6h_common.cuh")
 
 NVCC_FLAGS = (
@@ -64,6 +67,10 @@ SIGNATURES = {
                       _P, _P, _P, _P, _P, _P]),
     "exact_probe": ("ck_exact_probe", [_P, _P, _I, _P, _P, _P]),
 }
+if set(SIGNATURES) != set(SOURCES):
+    raise ImportError(f"csrc/ holds {sorted(SOURCES)} but SIGNATURES declares "
+                      f"{sorted(SIGNATURES)}: each <name>.cu needs its entry "
+                      f"point here")
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes._CFuncPtr] = {}
@@ -156,7 +163,28 @@ def function(name: str):
         return _loaded[name]
 
 
-def check(err: int, what: str) -> None:
-    """Raise if a C entry point returned a CUDA error code."""
+def check_tensor(name, t, dtype, shape, device):
+    """Raise unless `t` is a contiguous `dtype` tensor of `shape` on
+    `device`: what a C entry point takes as a pointer."""
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, "
+                         f"got {tuple(t.shape)}")
+    if t.device != device:
+        raise ValueError(f"{name}: expected device {device}, got {t.device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+
+
+def launch(name: str, what: str, *args) -> None:
+    """Call the C entry point of library `name` with `args` and the current
+    CUDA stream (read now, so that a graph capture gets its own): a tensor
+    is passed as its data pointer, None as NULL, anything else as it is.
+    Raises naming `what` if the entry point returns a CUDA error code."""
+    import torch
+    err = function(name)(
+        *[a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args],
+        torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with error {err}")

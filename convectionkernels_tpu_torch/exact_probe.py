@@ -65,10 +65,7 @@ def run(a, b):
             raise ValueError(f"{name}: expected a contiguous CUDA f32 [n]")
     f = torch.empty((6, n), dtype=torch.float32, device=a.device)
     i = torch.empty((2, n), dtype=torch.int32, device=a.device)
-    fn = cuda_lib.function("exact_probe")
-    cuda_lib.check(fn(a.data_ptr(), b.data_ptr(), n, f.data_ptr(),
-                      i.data_ptr(), torch.cuda.current_stream().cuda_stream),
-                   "exact_probe")
+    cuda_lib.launch("exact_probe", "exact_probe", a, b, n, f, i)
     return f, i
 
 

@@ -27,15 +27,14 @@ import torch
 
 from .. import cuda_lib, programs
 from ..ops import lanes, pca
+from ..ops.lanes import F32, I32, LexBest
 from ..options import Flags
+from ..programs import i32, lut
 from ..tables import bc6h_layout
 from ..tables import bc7_geometry as geom
 from . import bc6h_common, bc6h_kernel
 from .bc6h_common import HDR_MODES, MAX_REFINE_ROUNDS
 from .bc6h_kernel import MAX_META
-from .bc7 import LexBest, _i32, _lut
-
-I32, F32 = torch.int32, torch.float32
 
 _FIELDS = ("m", "d", "rw", "rx", "ry", "rz", "gw", "gx", "gy", "gz",
            "bw", "bx", "by", "bz")
@@ -184,7 +183,7 @@ def _pack_bits(best, n):
     dev = mode.device
     mode_l = mode.long()
 
-    mode_ids = _i32([m[0] for m in HDR_MODES], dev)[mode_l]
+    mode_ids = i32([m[0] for m in HDR_MODES], dev)[mode_l]
     # fields in _FIELDS order: m, d, then per channel w, x, y, z =
     # (subset 0 ep 0), (subset 0 ep 1), (subset 1 ep 0), (subset 1 ep 1)
     fields = torch.cat([mode_ids[:, None], partition[:, None],
@@ -200,7 +199,7 @@ def _pack_bits(best, n):
     header_bits = torch.where(partitioned, bc6h_layout.HEADER_BITS_PARTITIONED,
                               bc6h_layout.HEADER_BITS_SINGLE).to(I32)[:, None]
     index_bits = torch.where(partitioned, 3, 4).to(I32)[:, None]
-    fix1 = torch.where(partitioned, _lut(geom.FIXUP_INDEXES_2, partition),
+    fix1 = torch.where(partitioned, lut(geom.FIXUP_INDEXES_2, partition),
                        0).to(I32)[:, None]
     # pixel 0 and the second subset's fixup pixel store one bit less
     px = torch.arange(16, dtype=I32, device=dev)[None, :]

@@ -20,12 +20,11 @@ from .. import programs
 from ..ops import lanes
 from ..ops.exact_math import exact_divide
 from ..ops.index_select import WEIGHT_RECIPROCALS
+from ..ops.lanes import F32, I32
 from ..ops.refine import EndpointRefiner
 
 MAX_TWEAK_ROUNDS = 4   # BC67.h:86
 MAX_REFINE_ROUNDS = 3  # BC67.h:87
-
-F32, I32 = torch.float32, torch.int32
 
 # g_hdrModes (BC67.cpp:151-167): (modeID, partitioned, transformed, aPrec,
 # bPrec[3]) in table order; mode indexes match bc6h_layout.LAYOUTS.

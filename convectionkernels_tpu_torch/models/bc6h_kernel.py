@@ -58,13 +58,14 @@ import numpy as np
 import torch
 
 from .. import cuda_lib, programs
+from ..cuda_lib import check_tensor
 from ..ops import lanes
 from ..ops.index_select import WEIGHT_RECIPROCALS
+from ..ops.lanes import F32, I32, INF
+from ..programs import i32, lut
 from ..tables import bc7_geometry as geom
 from . import bc6h_common
 from .bc6h_common import HDR_MODES
-from .bc7 import INF, _i32, _lut
-from .bc7_kernel import _check_tensor
 
 Q = 64            # (partition, subset) rows of a partitioned group
 INDEX_RANGE = 8   # 3-bit indexes
@@ -74,12 +75,6 @@ MAX_META = bc6h_common.MAX_TWEAK_ROUNDS * bc6h_common.MAX_REFINE_ROUNDS
 
 # The libraries of csrc/ that BC6H launches.
 LIBRARIES = ("bc6h_group", "bc6h_single", "bc6h_combine")
-
-# Launches of the CUDA kernels, counted where the wrappers launch them (and
-# by a program's replay, for the launches its graph holds).
-LAUNCHES = programs.launch_counter()
-
-F32, I32 = torch.float32, torch.int32
 
 
 def _subset_tables():
@@ -159,9 +154,9 @@ def partitioned_group_meta_rounds(pix, base, offset, aprec, is_signed,
     _check_rounds(num_tweak_rounds, num_refine_rounds)
     if not 6 <= aprec <= 11:
         raise ValueError(f"aprec {aprec} is not a partitioned group's")
-    _check_tensor("pix", pix, I32, (n, 48), dev)
-    _check_tensor("base", base, F32, (n, 3, Q), dev)
-    _check_tensor("offset", offset, F32, (n, 3, Q), dev)
+    check_tensor("pix", pix, I32, (n, 48), dev)
+    check_tensor("base", base, F32, (n, 3, Q), dev)
+    check_tensor("offset", offset, F32, (n, 3, Q), dev)
     a_count = num_tweak_rounds * num_refine_rounds
     err = torch.empty((n, a_count, Q), dtype=F32, device=dev)
     valid = torch.empty((n, a_count, Q), dtype=I32, device=dev)
@@ -169,15 +164,12 @@ def partitioned_group_meta_rounds(pix, base, offset, aprec, is_signed,
     idx = torch.empty((n, a_count, 2, Q), dtype=I32, device=dev)
     if n == 0:
         return err, valid, eps, idx
-    fn = cuda_lib.function("bc6h_group")
     floats, ints = _launch_constants(cw)
-    code = fn(pix.data_ptr(), base.data_ptr(), offset.data_ptr(), n, aprec,
-              int(is_signed), int(fast_indexing), int(uniform),
-              num_tweak_rounds, num_refine_rounds, floats, ints,
-              err.data_ptr(), valid.data_ptr(), eps.data_ptr(),
-              idx.data_ptr(), torch.cuda.current_stream().cuda_stream)
-    cuda_lib.check(code, f"partitioned_group_meta_rounds(aprec {aprec})")
-    LAUNCHES["partitioned_group_meta_rounds"] += 1
+    cuda_lib.launch("bc6h_group",
+                    f"partitioned_group_meta_rounds(aprec {aprec})", pix,
+                    base, offset, n, aprec, int(is_signed),
+                    int(fast_indexing), int(uniform), num_tweak_rounds,
+                    num_refine_rounds, floats, ints, err, valid, eps, idx)
     return err, valid, eps, idx
 
 
@@ -233,9 +225,9 @@ def single_group_meta_rounds(pix, base, offset, aprec, is_signed,
             pix, base, offset, aprec, is_signed, fast_indexing, uniform, cw,
             num_tweak_rounds, num_refine_rounds)
     n, dev = pix.shape[0], pix.device
-    _check_tensor("pix", pix, I32, (n, 48), dev)
-    _check_tensor("base", base, F32, (n, 3), dev)
-    _check_tensor("offset", offset, F32, (n, 3), dev)
+    check_tensor("pix", pix, I32, (n, 48), dev)
+    check_tensor("base", base, F32, (n, 3), dev)
+    check_tensor("offset", offset, F32, (n, 3), dev)
     a_count = num_tweak_rounds * num_refine_rounds
     err = torch.empty((n, a_count, 1), dtype=F32, device=dev)
     valid = torch.empty((n, a_count, 1), dtype=I32, device=dev)
@@ -244,15 +236,12 @@ def single_group_meta_rounds(pix, base, offset, aprec, is_signed,
                       device=dev)
     if n == 0:
         return err, valid, eps, idx
-    fn = cuda_lib.function("bc6h_single")
     floats, weight_reciprocal = _single_launch_constants(cw)
-    code = fn(pix.data_ptr(), base.data_ptr(), offset.data_ptr(), n, aprec,
-              int(is_signed), int(fast_indexing), int(uniform),
-              num_tweak_rounds, num_refine_rounds, floats, weight_reciprocal,
-              err.data_ptr(), valid.data_ptr(), eps.data_ptr(),
-              idx.data_ptr(), torch.cuda.current_stream().cuda_stream)
-    cuda_lib.check(code, f"single_group_meta_rounds(aprec {aprec})")
-    LAUNCHES["single_group_meta_rounds"] += 1
+    cuda_lib.launch("bc6h_single", f"single_group_meta_rounds(aprec {aprec})",
+                    pix, base, offset, n, aprec, int(is_signed),
+                    int(fast_indexing), int(uniform), num_tweak_rounds,
+                    num_refine_rounds, floats, weight_reciprocal, err, valid,
+                    eps, idx)
     return err, valid, eps, idx
 
 
@@ -332,10 +321,10 @@ def combine(err, valid, eps, idx, aprec, mode_list, meta_ids, rank_base):
         raise ValueError(f"modes {list(mode_list)} are not one "
                          f"{'partitioned' if partitioned else 'single'} "
                          f"group of aprec {aprec}")
-    _check_tensor("err", err, F32, (n, m_count, q_count), dev)
-    _check_tensor("valid", valid, I32, (n, m_count, q_count), dev)
-    _check_tensor("eps", eps, I32, (n, m_count, 6, q_count), dev)
-    _check_tensor("idx", idx, I32, (n, m_count, 2, Q) if partitioned
+    check_tensor("err", err, F32, (n, m_count, q_count), dev)
+    check_tensor("valid", valid, I32, (n, m_count, q_count), dev)
+    check_tensor("eps", eps, I32, (n, m_count, 6, q_count), dev)
+    check_tensor("idx", idx, I32, (n, m_count, 2, Q) if partitioned
                   else (n, m_count, 16, 1), dev)
     win_err = torch.empty((n,), dtype=F32, device=dev)
     win_rank = torch.empty((n,), dtype=I32, device=dev)
@@ -345,17 +334,12 @@ def combine(err, valid, eps, idx, aprec, mode_list, meta_ids, rank_base):
                "idx": torch.empty((n, 16), dtype=I32, device=dev)}
     if n == 0:
         return win_err, win_rank, payload
-    fn = cuda_lib.function("bc6h_combine")
     ids, modes, pmap = _combine_constants(mode_list, meta_ids)
-    code = fn(err.data_ptr(), valid.data_ptr(), eps.data_ptr(),
-              idx.data_ptr(), n, m_count, int(partitioned), aprec, rank_base,
-              ids, len(mode_list), modes, pmap, win_err.data_ptr(),
-              win_rank.data_ptr(), payload["mode"].data_ptr(),
-              payload["partition"].data_ptr(), payload["ep"].data_ptr(),
-              payload["idx"].data_ptr(),
-              torch.cuda.current_stream().cuda_stream)
-    cuda_lib.check(code, f"combine(aprec {aprec})")
-    LAUNCHES["combine"] += 1
+    cuda_lib.launch("bc6h_combine", f"combine(aprec {aprec})", err, valid,
+                    eps, idx, n, m_count, int(partitioned), aprec, rank_base,
+                    ids, len(mode_list), modes, pmap, win_err, win_rank,
+                    payload["mode"], payload["partition"], payload["ep"],
+                    payload["idx"])
     return win_err, win_rank, payload
 
 
@@ -398,9 +382,9 @@ def combine_plain(err, valid, eps, idx, aprec, mode_list, meta_ids,
         if not transformed:
             any_legal = None
             break
-        half = _i32([1 << (b - 1) for b in bprec], dev).view(3, 1)
-        hi_mask = _i32([(1 << aprec) - (1 << b) for b in bprec],
-                       dev).view(3, 1)
+        half = i32([1 << (b - 1) for b in bprec], dev).view(3, 1)
+        hi_mask = i32([(1 << aprec) - (1 << b) for b in bprec],
+                      dev).view(3, 1)
         legal = None
         for d in deltas:
             ok = (((d + half) & hi_mask) == 0).all(dim=3)
@@ -419,7 +403,7 @@ def combine_plain(err, valid, eps, idx, aprec, mode_list, meta_ids,
     win_part = win // (m_count * m1_count)
     win_m0_pos = (win // m1_count) % m_count
     win_m1_pos = win % m1_count
-    ids = _i32(meta_ids, dev)
+    ids = i32(meta_ids, dev)
     win_m0 = ids[win_m0_pos.long()]
     win_m1 = ids[win_m1_pos.long()] if partitioned else torch.zeros_like(win)
     win_rank = rank_base + (win_part * (MAX_META * MAX_META)
@@ -440,7 +424,7 @@ def combine_plain(err, valid, eps, idx, aprec, mode_list, meta_ids,
         if transformed:
             first = cand[:, 0, 0, :]                        # [N,3]
             delta = _truncate_signed(cand - first[:, None, None, :],
-                                     _i32(bprec, dev))
+                                     i32(bprec, dev))
             recon = (delta + first[:, None, None, :]) & a_mask
             same = (recon == (cand & a_mask)).view(n, 4, 3)
             # every endpoint but the first becomes a delta; a single mode
@@ -462,8 +446,8 @@ def combine_plain(err, valid, eps, idx, aprec, mode_list, meta_ids,
         # partition's row, unpacked per pixel by the partition map's bit
         words0 = idx[rows, m0_l, :, part_l]                 # [N,2]
         words1 = idx[rows, m1_l, :, num_parts + part_l]
-        pmap = _lut(np.asarray(geom.PARTITION_MAP_2, dtype=np.int32),
-                    win_part)
+        pmap = lut(np.asarray(geom.PARTITION_MAP_2, dtype=np.int32),
+                   win_part)
         px = torch.arange(16, dtype=I32, device=dev)
         in_subset1 = ((pmap[:, None] >> px) & 1) == 1       # [N,16]
         word_of_px = (px >= 10).long()[None, :].expand(n, 16)

@@ -23,67 +23,17 @@ from .. import programs
 from ..bc7_plan import BC7EncodingPlan
 from ..ops import lanes
 from ..ops.index_select import IndexSelector
+from ..ops.lanes import BIG_RANK, F32, I32, INF, LexBest
 from ..options import Flags
+from ..programs import i32, lut
 from ..tables import bc7_geometry as geom
 from . import bc7_common, bc7_kernel
 from .bc7_common import MAX_TWEAK_ROUNDS, MODE_INFO
-
-INF = float("inf")
-BIG_RANK = 2**30
-I32, F32 = torch.int32, torch.float32
-
-
-def _i32(values, device):
-    """An int32 constant on `device` (programs.constant)."""
-    return programs.constant(values, device, np.int32)
-
-
-# --- Lexicographic best tracking ---------------------------------------------
-
-class LexBest:
-    """Running (error, rank) lexicographic minimum with payload tensors.
-
-    Reproduces the reference's sequential strict-less update: the final
-    winner is the minimum-rank candidate among those achieving the minimum
-    error, where rank is the reference's visitation order.
-    """
-
-    def __init__(self, error, rank, payload: dict):
-        self.error = error
-        self.rank = rank
-        self.payload = payload
-
-    @classmethod
-    def empty(cls, shape, payload_spec: dict, device):
-        """No candidate yet: FLT_MAX error, BIG_RANK, zero int32 payloads of
-        shape `shape + payload_spec[key]`."""
-        error = torch.full(shape, lanes.FLT_MAX, dtype=F32, device=device)
-        rank = torch.full(shape, BIG_RANK, dtype=I32, device=device)
-        payload = {k: torch.zeros(shape + extra, dtype=I32, device=device)
-                   for k, extra in payload_spec.items()}
-        return cls(error, rank, payload)
-
-    def update(self, error, rank, payload: dict, extra_valid=None):
-        better = (error < self.error) | ((error == self.error)
-                                         & (rank < self.rank))
-        if extra_valid is not None:
-            better = better & extra_valid
-        self.error = torch.where(better, error, self.error)
-        self.rank = torch.where(better, rank, self.rank)
-        for k in self.payload:
-            extra = self.payload[k].dim() - better.dim()
-            b = better.reshape(better.shape + (1,) * extra)
-            self.payload[k] = torch.where(b, payload[k], self.payload[k])
 
 
 def _gather_cols(arr, col):
     """arr[n, col[n]]."""
     return arr.gather(1, col.long()[:, None])[:, 0]
-
-
-def _lut(table, idx):
-    """table[idx] for a small constant table."""
-    return _i32(table, idx.device)[idx.long()]
 
 
 # --- Single-plane search ------------------------------------------------------
@@ -106,7 +56,7 @@ def _single_plane_kernel_best(mode, pix, base, offset, seeds, parity_max,
     pti[:, :parity_max] = pti_arr.to(I32)
     err, rank, pk0, pk1 = bc7_kernel.single_plane_mode_best(
         mode, pix, base.contiguous(), offset.contiguous(),
-        alpha_s.contiguous(), pti, _i32(lane_i, dev),
+        alpha_s.contiguous(), pti, i32(lane_i, dev),
         programs.constant(tweakf, dev), c_max, cfg, cw,
         num_refine_rounds)
     return LexBest(err, rank, {"eppk0": pk0, "eppk1": pk1}), c_max
@@ -137,10 +87,10 @@ def try_single_plane(pix, pixels, float_pixels, channel_weights, flags,
     rgba_ids = np.asarray(plan.rgba_shape_list, dtype=np.int32)
     all_masks = geom.shape_masks()
     rgb_base, rgb_offset, static_alpha_error_rgb = bc7_kernel.shape_pca(
-        pix, _i32(bc7_kernel.shape_mask_bits(all_masks[rgb_ids]), dev), 3,
+        pix, i32(bc7_kernel.shape_mask_bits(all_masks[rgb_ids]), dev), 3,
         cw, uniform, True)
     rgba4_base, rgba4_offset, _ = bc7_kernel.shape_pca(
-        pix, _i32(bc7_kernel.shape_mask_bits(all_masks[rgba_ids]), dev), 4,
+        pix, i32(bc7_kernel.shape_mask_bits(all_masks[rgba_ids]), dev), 4,
         cw, uniform, False)
 
     # RGBA endpoints: per lane, PCA4 when hasAlpha || !allowRGB, else
@@ -377,13 +327,13 @@ def _combine_partitions(mode, mode_pos, best, shape_ids, plan, n, has_alpha,
 
     cand = torch.where(valid, total_error, torch.full((), INF, device=dev))
     err, win = lanes.lex_min_with_index(cand, 1)
-    win_part = _lut(parts, win)
+    win_part = lut(parts, win)
 
     # materialize winner payload
     zero = torch.zeros((n,), dtype=I32, device=dev)
     ep = [[[zero for _ in range(4)] for _ in range(2)] for _ in range(3)]
     for subset in range(num_subsets):
-        c = _lut(table[:, subset], win)
+        c = lut(table[:, subset], win)
         for epi in range(2):
             pk = _gather_cols(best.payload[f"eppk{epi}"], c)
             for ch in range(4):
@@ -393,7 +343,7 @@ def _combine_partitions(mode, mode_pos, best, shape_ids, plan, n, has_alpha,
     if num_subsets == 1:
         owner = [zero] * 16
     elif num_subsets == 2:
-        pmap = _lut(geom.PARTITION_MAP_2, win_part)
+        pmap = lut(geom.PARTITION_MAP_2, win_part)
         owner = [(pmap >> px) & 1 for px in range(16)]
     else:
         pmap = programs.constant(geom.PARTITION_MAP_3, dev)[
@@ -636,17 +586,17 @@ def _pack_mode_bits(mode: int, work, n):
         fix1 = fix2 = zero
     else:
         if num_subsets == 2:
-            fix1 = _lut(geom.FIXUP_INDEXES_2, partition)
+            fix1 = lut(geom.FIXUP_INDEXES_2, partition)
             fix2 = zero
         elif num_subsets == 3:
-            fix1 = _lut(geom.FIXUP_INDEXES_3[:, 0], partition)
-            fix2 = _lut(geom.FIXUP_INDEXES_3[:, 1], partition)
+            fix1 = lut(geom.FIXUP_INDEXES_3[:, 0], partition)
+            fix2 = lut(geom.FIXUP_INDEXES_3[:, 1], partition)
         else:
             fix1 = fix2 = zero
 
         # owner subset per pixel
         if num_subsets == 2:
-            pmap = _lut(geom.PARTITION_MAP_2, partition)
+            pmap = lut(geom.PARTITION_MAP_2, partition)
             owner = [(pmap >> px) & 1 for px in range(16)]
         elif num_subsets == 3:
             pmap = programs.constant(geom.PARTITION_MAP_3, dev)[

@@ -5,7 +5,8 @@ Each wrapper takes the kernel for a CUDA tensor and the plain version for
 a CPU tensor; there is no other switch and no fallback. The plain version
 is the torch translation of the TPU kernel body over the whole batch,
 built from the same ops (ops/, bc7_common) the CUDA sources mirror, so
-the two agree bit for bit (chip_smoke.py checks that on the card).
+the two agree bit for bit (tests/test_torch_cuda.py checks that on the
+card).
 
   shape_pca               <- convectionkernels_tpu bc7_kernel.shape_pca
   single_plane_mode_best  <- convectionkernels_tpu bc7_kernel.single_plane_mode_best
@@ -26,35 +27,12 @@ import numpy as np
 import torch
 
 from .. import cuda_lib, programs
+from ..cuda_lib import check_tensor
 from ..ops import lanes, pca
 from ..ops.index_select import WEIGHT_RECIPROCALS, IndexSelector
+from ..ops.lanes import BIG_RANK, F32, I32, INF
 from ..ops.refine import EndpointRefiner
 from . import bc7_common
-
-BIG_RANK = 2**30
-INF = float("inf")
-
-# Launches of each CUDA kernel, counted where the wrapper launches it (and
-# by a program's replay, for the launches its graph holds).
-LAUNCHES = programs.launch_counter()
-
-F32, I32 = torch.float32, torch.int32
-
-
-def _stream():
-    return torch.cuda.current_stream().cuda_stream
-
-
-def _check_tensor(name, t, dtype, shape, device):
-    if t.dtype != dtype:
-        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: expected shape {tuple(shape)}, "
-                         f"got {tuple(t.shape)}")
-    if t.device != device:
-        raise ValueError(f"{name}: expected device {device}, got {t.device}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: must be contiguous")
 
 
 def _cw_array(cw):
@@ -86,25 +64,19 @@ def shape_pca(pix, mask_bits, nch, cw, uniform, with_alpha):
     if pix.device.type == "cpu":
         return shape_pca_plain(pix, mask_bits, nch, cw, uniform, with_alpha)
     n, s_count = pix.shape[0], mask_bits.shape[0]
-    _check_tensor("pix", pix, I32, (n, 64), pix.device)
-    _check_tensor("mask_bits", mask_bits, I32, (s_count,), pix.device)
+    check_tensor("pix", pix, I32, (n, 64), pix.device)
+    check_tensor("mask_bits", mask_bits, I32, (s_count,), pix.device)
     base = torch.empty((n, s_count, 4), dtype=F32, device=pix.device)
     offset = torch.empty_like(base)
     alpha = (torch.empty((n, s_count), dtype=F32, device=pix.device)
              if with_alpha else None)
-    fn = cuda_lib.function("shape_pca")
-    err = fn(pix.data_ptr(), mask_bits.data_ptr(), n, s_count, nch,
-             _cw_array(cw), int(uniform), int(with_alpha),
-             # shapes a warp takes at once: 4 gives the alpha errors (4
-             # bytes each) longer row pieces, 2 balances the warps better;
-             # within 2% of the best chunk at every list length timed
-             # (chip_smoke.py --pca-chunks, PERF.md)
-             4 if with_alpha else 2,
-             base.data_ptr(), offset.data_ptr(),
-             alpha.data_ptr() if with_alpha else None,
-             _stream())
-    cuda_lib.check(err, "shape_pca")
-    LAUNCHES["shape_pca"] += 1
+    cuda_lib.launch("shape_pca", "shape_pca", pix, mask_bits, n, s_count,
+                    nch, _cw_array(cw), int(uniform), int(with_alpha),
+                    # shapes a warp takes at once: 4 gives the alpha errors
+                    # (4 bytes each) longer row pieces, 2 balances the warps
+                    # better; within 2% of the best chunk at every list
+                    # length timed on an H100
+                    4 if with_alpha else 2, base, offset, alpha)
     return base, offset, alpha
 
 
@@ -207,26 +179,22 @@ def single_plane_mode_best(mode, pix, base, offset, alpha, pti, lane_i,
             cw, num_refine_rounds)
     n, s_count, k_len = pix.shape[0], base.shape[1], lane_i.shape[1]
     dev = pix.device
-    _check_tensor("pix", pix, I32, (n, 64), dev)
-    _check_tensor("base", base, F32, (n, s_count, 4), dev)
-    _check_tensor("offset", offset, F32, (n, s_count, 4), dev)
-    _check_tensor("alpha", alpha, F32, (n, s_count), dev)
-    _check_tensor("pti", pti, I32, (n, 4), dev)
-    _check_tensor("lane_i", lane_i, I32, (5, k_len), dev)
-    _check_tensor("tweakf", tweakf, F32, (2, k_len), dev)
+    check_tensor("pix", pix, I32, (n, 64), dev)
+    check_tensor("base", base, F32, (n, s_count, 4), dev)
+    check_tensor("offset", offset, F32, (n, s_count, 4), dev)
+    check_tensor("alpha", alpha, F32, (n, s_count), dev)
+    check_tensor("pti", pti, I32, (n, 4), dev)
+    check_tensor("lane_i", lane_i, I32, (5, k_len), dev)
+    check_tensor("tweakf", tweakf, F32, (2, k_len), dev)
     err = torch.empty((n, k_len), dtype=F32, device=dev)
     rank = torch.empty((n, k_len), dtype=I32, device=dev)
     pk0 = torch.empty_like(rank)
     pk1 = torch.empty_like(rank)
-    fn = cuda_lib.function("single_plane")
-    code = fn(mode, pix.data_ptr(), base.data_ptr(), offset.data_ptr(),
-              alpha.data_ptr(), pti.data_ptr(), lane_i.data_ptr(),
-              tweakf.data_ptr(), n, s_count, k_len, cpow,
-              max(num_refine_rounds, 1), int(cfg["fast_indexing"]),
-              int(cfg["uniform"]), _cw_array(cw), err.data_ptr(),
-              rank.data_ptr(), pk0.data_ptr(), pk1.data_ptr(), _stream())
-    cuda_lib.check(code, f"single_plane_mode_best(mode {mode})")
-    LAUNCHES["single_plane_mode_best"] += 1
+    cuda_lib.launch("single_plane", f"single_plane_mode_best(mode {mode})",
+                    mode, pix, base, offset, alpha, pti, lane_i, tweakf, n,
+                    s_count, k_len, cpow, max(num_refine_rounds, 1),
+                    int(cfg["fast_indexing"]), int(cfg["uniform"]),
+                    _cw_array(cw), err, rank, pk0, pk1)
     return err, rank, pk0, pk1
 
 
@@ -458,9 +426,9 @@ def dual_plane_best(pix, ci, cf, num_refine_rounds, uniform, fast_indexing,
                                      uniform, fast_indexing, work)
     n, k_len = pix.shape[0], ci.shape[1]
     dev = pix.device
-    _check_tensor("pix", pix, I32, (n, 64), dev)
-    _check_tensor("ci", ci, I32, (_CI_ROWS, k_len), dev)
-    _check_tensor("cf", cf, F32, (_CF_ROWS, k_len), dev)
+    check_tensor("pix", pix, I32, (n, 64), dev)
+    check_tensor("ci", ci, I32, (_CI_ROWS, k_len), dev)
+    check_tensor("cf", cf, F32, (_CF_ROWS, k_len), dev)
     out = dict(
         rgb_err=torch.empty((n, k_len), dtype=F32, device=dev),
         rgb_rank=torch.empty((n, k_len), dtype=I32, device=dev),
@@ -471,13 +439,10 @@ def dual_plane_best(pix, ci, cf, num_refine_rounds, uniform, fast_indexing,
         a_ep=torch.empty((n, 2, k_len), dtype=I32, device=dev),
         a_idx=torch.empty((n, 16, k_len), dtype=I32, device=dev))
     order, n_live, n_rot = work
-    fn = cuda_lib.function("dual_plane")
-    code = fn(pix.data_ptr(), ci.data_ptr(), cf.data_ptr(), order.data_ptr(),
-              n, k_len, n_live, n_rot, max(num_refine_rounds, 1),
-              int(uniform), int(fast_indexing),
-              *[out[k].data_ptr() for k in _DUAL_KEYS], _stream())
-    cuda_lib.check(code, "dual_plane_best")
-    LAUNCHES["dual_plane_best"] += 1
+    cuda_lib.launch("dual_plane", "dual_plane_best", pix, ci, cf, order, n,
+                    k_len, n_live, n_rot, max(num_refine_rounds, 1),
+                    int(uniform), int(fast_indexing),
+                    *[out[k] for k in _DUAL_KEYS])
     return out
 
 

@@ -36,18 +36,16 @@ import torch
 from .. import programs
 from ..ops import lanes
 from ..ops.exact_math import exact_divide, exact_sqrt
+from ..ops.lanes import F32, FLT_MAX, I32, INF
 from ..options import Flags, Options
+from ..programs import i32
 from ..tables import etc_tables
-
-F32, I32 = torch.float32, torch.int32
 
 FLIP_TABLES = np.array([
     [[0, 1, 4, 5, 8, 9, 12, 13], [2, 3, 6, 7, 10, 11, 14, 15]],
     [[0, 1, 2, 3, 4, 5, 6, 7], [8, 9, 10, 11, 12, 13, 14, 15]],
 ], dtype=np.int32)  # g_flipTables (ETC.cpp:47-57)
 
-INF = float("inf")
-FLT_MAX = lanes.FLT_MAX
 RANK_NONE = 2**30
 
 PIXEL_SELECTOR_ORDER = np.array([0, 4, 8, 12, 1, 5, 9, 13, 2, 6, 10, 14, 3, 7,
@@ -59,11 +57,6 @@ def _f32(v):
     """A Python float holding float32(v): torch multiplies a float32 tensor
     by it in float32, as JAX multiplies by an np.float32."""
     return float(np.float32(v))
-
-
-def _i32(a, device):
-    """An int32 constant on `device` (programs.constant)."""
-    return programs.constant(a, device, np.int32)
 
 
 def _weights(options: Options):
@@ -184,7 +177,7 @@ class StageBest:
 
 def words_to_bytes(words):
     """int32 [N, W] big-endian words -> uint8 [N, 4 W]."""
-    shifts = _i32([24, 16, 8, 0], words.device)
+    shifts = i32([24, 16, 8, 0], words.device)
     out = (words[:, :, None] >> shifts) & 0xFF
     return out.reshape(words.shape[0], -1).to(torch.uint8)
 
@@ -238,7 +231,7 @@ def _candidate_colors(cum, quantize):
     """Packed 15-bit candidate base colors [N, 8, 81] of a half block:
     cum [N, 3] int32 channel sums of its 8 pixels, each (table, offset)
     quantized by `quantize` (int32 [N, 3, 8, 81] -> the 3 channels)."""
-    offsets = _i32(_padded_offsets()[0], cum.device)
+    offsets = i32(_padded_offsets()[0], cum.device)
     cu = torch.clamp(cum[:, :, None, None] + offsets, 0, 2040)
     q = quantize(cu)
     return q[0] | (q[1] << 5) | (q[2] << 10)
@@ -270,8 +263,8 @@ def _etc1_candidates_dedup(cum, sector_pw, differential: bool,
     u = torch.cumsum((packed != prev).to(I32), dim=-1, dtype=I32) - 1
     runs = torch.full((n, 8, width), _EMPTY_COLOR, dtype=I32, device=dev)
     runs.scatter_(2, u.long(), packed)
-    slots = _i32(np.concatenate([t * width + np.arange(k)
-                                 for t, k in enumerate(kb)]), dev)
+    slots = i32(np.concatenate([t * width + np.arange(k)
+                                for t, k in enumerate(kb)]), dev)
     ucolor = runs.reshape(n, -1).index_select(1, slots)   # [N, A]
     is_empty = ucolor == _EMPTY_COLOR
     ucolor = torch.where(is_empty, torch.zeros_like(ucolor), ucolor)
@@ -279,14 +272,14 @@ def _etc1_candidates_dedup(cum, sector_pw, differential: bool,
     error, selectors = _test_half_block_flat(
         ucolor, sector_pw, mods_a, differential, options)
     error = torch.where(is_empty, torch.full_like(error, INF), error)
-    table = _i32(slot_tables, dev).expand(n, -1)
+    table = i32(slot_tables, dev).expand(n, -1)
     return error, ucolor, selectors, table
 
 
 def _unquantize(packed, differential: bool):
     """The 3 channels of packed 5-5-5 (or 4-4-4 in 5-bit fields) colors,
     expanded to 8 bits, stacked on dim 1."""
-    shifts = _channel_view(_i32([0, 5, 10], packed.device), packed.dim() + 1)
+    shifts = _channel_view(i32([0, 5, 10], packed.device), packed.dim() + 1)
     q = (packed.unsqueeze(1) >> shifts) & 31
     if differential:
         return (q << 3) | (q >> 2)
@@ -313,7 +306,7 @@ def _test_half_block(packed, sector_pw, modifiers, differential: bool,
     The pixels stay a loop: the per-pixel grids are [N, 4, T, C] (a pixel
     axis would make them 8 times that).
     """
-    mods = _i32(np.asarray(modifiers).T, packed.device)   # [4, T]
+    mods = i32(np.asarray(modifiers).T, packed.device)   # [4, T]
     unquant = _unquantize(packed, differential)            # [N, 3, T, C]
     modified = torch.clamp(unquant[:, :, None] + mods[None, None, :, :, None],
                            0, 255)                         # [N, 3, 4, T, C]
@@ -337,7 +330,7 @@ def _test_half_block_flat(packed, sector_pw, mods_a, differential: bool,
     rows: packed [N, A] int32, mods_a [A, 4]. The same arithmetic in the
     same order, with the 8 pixels a tensor axis ([N, 3, 4, 8, A] grids) and
     the error total a chain over them."""
-    mods = _i32(np.asarray(mods_a).T, packed.device)       # [4, A]
+    mods = i32(np.asarray(mods_a).T, packed.device)       # [4, A]
     unquant = _unquantize(packed, differential)            # [N, 3, A]
     modified = torch.clamp(unquant[:, :, None, :] + mods, 0, 255)
     terms = recon_terms(modified, options)[:, :, :, None, :]
@@ -367,7 +360,7 @@ def _sector_data(pixels, pw, flip: int):
     """(pw [N, 8, 3], channel sums [N, 3]) of each sector of `flip`."""
     out = []
     for sector in range(2):
-        idx = _i32(FLIP_TABLES[flip][sector], pixels.device)
+        idx = i32(FLIP_TABLES[flip][sector], pixels.device)
         out.append((pw.index_select(1, idx),
                     torch.sum(pixels.index_select(1, idx), dim=1, dtype=I32)))
     return out
@@ -411,8 +404,8 @@ def compress_etc1_internal(stage: StageBest, rank_base: int, pixels, pw,
                     error, selectors = _test_half_block(
                         packed, spw, modifiers, d == 1, options)
                     colors = packed.reshape(n, -1)
-                    tables_b = _i32(np.repeat(np.arange(8), c_count),
-                                    dev).expand(n, -1)
+                    tables_b = i32(np.repeat(np.arange(8), c_count),
+                                   dev).expand(n, -1)
                     error = error.reshape(n, -1)
                     selectors = selectors.reshape(n, -1)
                     urank = _unique_rank(colors, 8, c_count)
@@ -634,7 +627,7 @@ def _resolve_fake_bt709_rounding(cu, differential, accurate):
 
     # fast path: octant lookup table (ETC.cpp:2233-2285)
     fill = [c + (c >> 8) for c in cu]
-    table = _i32(etc_tables.fake_bt709_rounding16(), cu[0].device)
+    table = i32(etc_tables.fake_bt709_rounding16(), cu[0].device)
     if differential:
         r_off = (fill[0] << 6) & 0xF00
         g_off = (fill[1] << 4) & 0x0F0
@@ -655,7 +648,7 @@ def _resolve_fake_bt709_rounding(cu, differential, accurate):
 def _lo_word(low_bits, high_bits):
     """The low word of a T/H/ETC1 block: pixel PIXEL_SELECTOR_ORDER[px]'s
     low bit at px and high bit at 16 + px. low/high: [N, 16] 0 or 1."""
-    order = _i32(PIXEL_SELECTOR_ORDER, low_bits.device)
+    order = i32(PIXEL_SELECTOR_ORDER, low_bits.device)
     bit = torch.arange(16, dtype=I32, device=low_bits.device)
     return torch.sum((low_bits.index_select(1, order) << bit)
                      | (high_bits.index_select(1, order) << (bit + 16)),
@@ -688,7 +681,7 @@ def _emit_etc1(flip: int, d: int, win, n, transparent: bool):
     s = torch.cat([(win[sector]["selectors"][:, None] >> shifts) & 3
                    for sector in range(2)], dim=1)         # [N, 16]
     codes = ((((s >> 1) ^ 1) << 1) | (((s ^ (s >> 1)) & 1) ^ 1))
-    codes = codes.index_select(1, _i32(np.argsort(np.concatenate(
+    codes = codes.index_select(1, i32(np.argsort(np.concatenate(
         FLIP_TABLES[flip])), hi.device))
     return hi, _lo_word(codes & 1, (codes >> 1) & 1)
 
@@ -745,8 +738,8 @@ def _quantize_etc2_alpha(table_index, value, base, mult, is_11bit, is_signed):
     broadcast against value (int32)."""
     dev = value.device
     width = etc_tables.ALPHA_ROUNDING_TABLE_WIDTH
-    rounding = _i32(etc_tables.alpha_rounding_tables(), dev).reshape(-1)
-    mod_pos = _i32(etc_tables.ALPHA_MODIFIER_TABLE_POSITIVE, dev).reshape(-1)
+    rounding = i32(etc_tables.alpha_rounding_tables(), dev).reshape(-1)
+    mod_pos = i32(etc_tables.ALPHA_MODIFIER_TABLE_POSITIVE, dev).reshape(-1)
     offset = value - base
     about_reflector2 = offset + offset + mult
     lookup = (torch.abs(about_reflector2) >> 1) // torch.clamp_min(mult, 1)
@@ -778,7 +771,7 @@ def _compress_alpha_internal(pixels, is_11bit: bool, is_signed: bool):
     mid2 = max_a + min_a
 
     cand_table, cand_min_off, cand_max_off, cand_mult_off = (
-        _i32(a, dev) for a in _alpha_candidates())
+        i32(a, dev) for a in _alpha_candidates())
     min_mult = span[:, None] // (cand_max_off - cand_min_off)
     if is_11bit:
         min_mult = torch.clamp_max(min_mult, 112) & 120
@@ -822,7 +815,7 @@ def _compress_alpha_internal(pixels, is_11bit: bool, is_signed: bool):
     # emission (ETC.cpp:2049-2084): base, multiplier and table, then 16
     # 3-bit indices MSB-first in pixelSelectorOrder
     ordered = best_idx.index_select(
-        1, _i32(np.argsort(PIXEL_SELECTOR_ORDER), dev)).to(torch.int64)
+        1, i32(np.argsort(PIXEL_SELECTOR_ORDER), dev)).to(torch.int64)
     shifts = torch.arange(45, -1, -3, dtype=torch.int64, device=dev)
     stream = torch.sum(ordered << shifts, dim=1)           # 48 bits
     cols = [best_base & 0xFF, (best_mult << 4) | best_table]
@@ -902,7 +895,7 @@ def _emit_hmode(block_colors, sector_bits, sign_bits, table, opaque: bool):
     px_bits = torch.arange(16, dtype=I32, device=c0.device)
 
     # T-mode fallback for equal colors
-    t_line = (c0[:, None] >> _i32([10, 5, 0], c0.device)) & 0x1F
+    t_line = (c0[:, None] >> i32([10, 5, 0], c0.device)) & 0x1F
     t_sel = _selector_bits(((sign_bits[:, None] >> px_bits) & 1) << 1,
                            1) | 0x55555555
     t_hi, t_lo = _emit_tmode(t_line, t_line, t_sel, table, opaque)
@@ -939,8 +932,8 @@ def _decode_planar_coeff(coeff, ch_dim: int = 1):
     channels on `ch_dim`: green has 7 bits, red and blue 6."""
     shape = [1] * coeff.dim()
     shape[ch_dim] = 3
-    left = _i32([2, 1, 2], coeff.device).view(shape)
-    right = _i32([4, 6, 4], coeff.device).view(shape)
+    left = i32([2, 1, 2], coeff.device).view(shape)
+    right = i32([4, 6, 4], coeff.device).view(shape)
     return (coeff << left) | (coeff >> right)
 
 
@@ -1009,8 +1002,8 @@ def _planar_decode(best_coeffs):
     coefficients (channels on dim 1)."""
     dec = _decode_planar_coeff(best_coeffs)
     d_o, d_h, d_v = dec[..., 0:1], dec[..., 1:2], dec[..., 2:3]
-    x = _i32(_PLANAR_X, dec.device)
-    y = _i32(_PLANAR_Y, dec.device)
+    x = i32(_PLANAR_X, dec.device)
+    y = i32(_PLANAR_Y, dec.device)
     interp = (x * (d_h - d_o) + y * (d_v - d_o) + ((d_o << 2) + 2)) >> 2
     return torch.clamp(interp, 0, 255)
 
@@ -1067,7 +1060,7 @@ def encode_planar(stage: StageBest, rank_base: int, pixels, pw,
         ranges = torch.stack([lanes.round_down_to_int(coeff),
                               lanes.round_up_to_int(coeff)], 3)
         bit = ((torch.arange(8, dtype=I32, device=dev)[:, None]
-                >> _i32([2, 1, 0], dev)) & 1)              # [8, 3]
+                >> i32([2, 1, 0], dev)) & 1)              # [8, 3]
         cand = torch.gather(
             ranges[:, :, None].expand(n, 3, 8, 3, 2), 4,
             bit.long()[None, None, :, :, None].expand(n, 3, 8, 3, 1)
@@ -1100,7 +1093,7 @@ def _resolve_th_fake_bt709(quantized, targets, granularity):
     low = lanes.to_float((unq * granularity) << 1).unsqueeze(2)
     high = lanes.to_float((unq_next * granularity) << 1).unsqueeze(2)
     octant_bits = (torch.arange(8, dtype=I32, device=unq.device)[None, :]
-                   >> _i32([0, 1, 2], unq.device)[:, None]) & 1  # [3, 8]
+                   >> i32([0, 1, 2], unq.device)[:, None]) & 1  # [3, 8]
     octant_bits = octant_bits.view([1, 3, 8] + [1] * (unq.dim() - 2))
     yuv = convert_to_fake_bt709(torch.where(octant_bits == 1, high, low))
     d = yuv - convert_to_fake_bt709(lanes.to_float(targets)).unsqueeze(2)
@@ -1109,7 +1102,7 @@ def _resolve_th_fake_bt709(quantized, targets, granularity):
     err = d[:, 0] * d[:, 0] + d[:, 1] + d[:, 1] + d[:, 2] * d[:, 2]
     octant = lanes.first_argmin(err, 1).unsqueeze(1)
     return quantized + ((octant >> _channel_view(
-        _i32([0, 1, 2], unq.device), unq.dim())) & 1)
+        i32([0, 1, 2], unq.device), unq.dim())) & 1)
 
 
 def _th_totals(groups, pixels):
@@ -1149,7 +1142,7 @@ def encode_tmode(stage: StageBest, rank_base: int, is_isolated, pixels, pw,
     offs = torch.arange(-16, 17, dtype=I32, device=dev)
     clamped = torch.maximum(-num_line[:, None],
                             torch.minimum(num_line[:, None], offs))
-    mods = _i32(TH_MODS, dev)
+    mods = i32(TH_MODS, dev)
     mod_addend = (clamped[:, None, :] * (2 * mods)[None, :, None]).reshape(
         n, 8 * TH_OFFSETS)
     base = line_total + line_total
@@ -1164,7 +1157,7 @@ def encode_tmode(stage: StageBest, rank_base: int, is_isolated, pixels, pw,
     packed = q[:, 0] | (q[:, 1] << 5) | (q[:, 2] << 10)    # red low
 
     unq = (q << 4) | q
-    mod_k = _i32(np.repeat(TH_MODS, TH_OFFSETS), dev)
+    mod_k = i32(np.repeat(TH_MODS, TH_OFFSETS), dev)
     opts_nf, pw_nf = _without_fake_bt709(pixels, pw, options)
     pw_nf = pw_nf.transpose(1, 2)[:, :, :, None]           # [N, 3, 16, 1]
     px_err = iso_error[:, :, None].expand(n, 16, 8 * TH_OFFSETS)
@@ -1182,7 +1175,7 @@ def encode_tmode(stage: StageBest, rank_base: int, is_isolated, pixels, pw,
 
     win_err, win = lanes.lex_min_with_index(error, (1,))
     line_color = (lanes.take_winner(packed, win)[:, None]
-                  >> _i32([0, 5, 10], dev)) & 15
+                  >> i32([0, 5, 10], dev)) & 15
     hi, lo = _emit_tmode(line_color, iso_q, lanes.take_winner(selectors, win),
                          win // TH_OFFSETS, True)
     stage.update(win_err, rank_base, hi, lo)
@@ -1217,7 +1210,7 @@ def encode_hmode(stage: StageBest, rank_base: int, groupings, pixels, pw,
     offs = torch.arange(-16, 17, dtype=I32, device=dev)
     clamped = torch.maximum(-counts[:, :, None],
                             torch.minimum(counts[:, :, None], offs))
-    mods = _i32(TH_MODS, dev)
+    mods = i32(TH_MODS, dev)
     mod_addend = (clamped[:, :, None, :]
                   * (2 * mods)[None, None, :, None]).reshape(n, 2, 1, -1)
     numer = torch.clamp_min((totals * 2 + counts[:, :, None] * 17)[..., None]
@@ -1227,7 +1220,7 @@ def encode_hmode(stage: StageBest, rank_base: int, groupings, pixels, pw,
     colors = (q[:, :, 0] << 10) | (q[:, :, 1] << 5) | q[:, :, 2]  # red high
 
     unq = (q << 4) | q
-    mod_k = _i32(np.repeat(TH_MODS, TH_OFFSETS), dev)
+    mod_k = i32(np.repeat(TH_MODS, TH_OFFSETS), dev)
     errs = []
     for sector in range(2):
         e_plus = error_from_terms(recon_terms(
@@ -1270,7 +1263,7 @@ def encode_hmode(stage: StageBest, rank_base: int, groupings, pixels, pw,
     modifier = mods[table.long()][:, None, None]
 
     def lane_errors(packed):
-        u = (packed[:, None] >> _i32([10, 5, 0], dev)) & 15
+        u = (packed[:, None] >> i32([10, 5, 0], dev)) & 15
         u = ((u << 4) | u)[:, :, None]                     # [N, 3, 1]
         e_plus = compute_error(torch.clamp_max(u + modifier, 255), pw_t,
                                options)
@@ -1453,7 +1446,7 @@ def encode_virtual_tmode_punchthrough(stage: StageBest, rank_base: int,
         iso_q = _resolve_th_fake_bt709(iso_q, numerator, num_iso[:, None])
 
     # H-mode isolated colors of the 8 tables: [N, 3, 8]
-    mods = _i32(TH_MODS, dev)
+    mods = i32(TH_MODS, dev)
     off_total = iso_total[:, :, None] + mods * num_iso[:, None, None]
     h_iso_q = torch.clamp_max(lanes.div_floor(
         off_total + off_total + addend[:, None, None],
@@ -1480,9 +1473,9 @@ def encode_virtual_tmode_punchthrough(stage: StageBest, rank_base: int,
     # punchthrough T packs its channels red high, unlike the opaque T mode
     packed = (q[:, 0] << 10) | (q[:, 1] << 5) | q[:, 2]
 
-    mod_k = _i32(np.repeat(TH_MODS, VIRTUAL_T_STEPS), dev)
-    low_bit_zero = _i32(np.repeat(np.arange(8), VIRTUAL_T_STEPS) & 1,
-                        dev) == 0
+    mod_k = i32(np.repeat(TH_MODS, VIRTUAL_T_STEPS), dev)
+    low_bit_zero = i32(np.repeat(np.arange(8), VIRTUAL_T_STEPS) & 1,
+                       dev) == 0
     h_q = h_iso_q.repeat_interleave(VIRTUAL_T_STEPS, dim=2)  # [N, 3, K]
     packed_h2 = (h_q[:, 0] << 10) | (h_q[:, 1] << 5) | h_q[:, 2]
 
@@ -1519,7 +1512,7 @@ def encode_virtual_tmode_punchthrough(stage: StageBest, rank_base: int,
     best_packed = lanes.take_winner(packed, win)
     best_sel = lanes.take_winner(selectors, win)
     table = win // VIRTUAL_T_STEPS
-    line_color = (best_packed[:, None] >> _i32([10, 5, 0], dev)) & 15
+    line_color = (best_packed[:, None] >> i32([10, 5, 0], dev)) & 15
     t_hi, t_lo = _emit_tmode(line_color, iso_q, best_sel, table, False)
 
     # selector remaps as bit math: sector [1, 0, 1, 0] == (sel & 1) ^ 1;
@@ -1540,7 +1533,7 @@ def _test_half_block_punchthrough(packed, sector_pw, sector_transparent,
     packed [N, K] int32, sector_pw [N, 8, 3], sector_transparent [N, 8],
     modifier [K] int32. The selector is remapped (1 -> 2, 2 -> 3); a
     transparent pixel takes selector 1 at error 0."""
-    q = (packed[:, None, :] >> _channel_view(_i32([0, 5, 10], packed.device),
+    q = (packed[:, None, :] >> _channel_view(i32([0, 5, 10], packed.device),
                                              3)) & 31
     unquant = (q << 3) | (q >> 2)                          # [N, 3, K]
     modified = torch.stack([torch.maximum(unquant, modifier) - modifier,
@@ -1562,14 +1555,14 @@ def compress_etc1_punchthrough(stage: StageBest, rank_base: int, pixels, pw,
     one table-major candidate axis (K = 136)."""
     n, dev = pixels.shape[0], pixels.device
     n_offs = 17
-    mods = _i32(PUNCHTHROUGH_MODIFIERS, dev)
-    mod_k = _i32(np.repeat(PUNCHTHROUGH_MODIFIERS, n_offs), dev)
-    table_k = _i32(np.repeat(np.arange(8), n_offs), dev).expand(n, -1)
+    mods = i32(PUNCHTHROUGH_MODIFIERS, dev)
+    mod_k = i32(np.repeat(PUNCHTHROUGH_MODIFIERS, n_offs), dev)
+    table_k = i32(np.repeat(np.arange(8), n_offs), dev).expand(n, -1)
     offs = torch.arange(-8, 9, dtype=I32, device=dev)
     for flip in range(2):
         diff_data, can_ignore = [], []
         for sector in range(2):
-            idx = _i32(FLIP_TABLES[flip][sector], dev)
+            idx = i32(FLIP_TABLES[flip][sector], dev)
             s_tr = transparent.index_select(1, idx)        # [N, 8]
             cum = torch.sum(pixels.index_select(1, idx), dim=1, dtype=I32)
             can_ignore.append(s_tr.all(dim=1))

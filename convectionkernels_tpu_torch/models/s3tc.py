@@ -24,11 +24,10 @@ import torch
 from .. import programs
 from ..ops import lanes, pca
 from ..ops.index_select import IndexSelector, aggregated_error_finalize
+from ..ops.lanes import F32, I32
 from ..ops.refine import EndpointRefiner
 from ..options import Flags
 from ..tables import s3tc_single_color
-
-F32, I32 = torch.float32, torch.int32
 
 PARANOIA = float(np.float32(0.03))  # ParanoidFactorForSpan's factor
 

@@ -25,6 +25,9 @@ F32 = torch.float32
 I32 = torch.int32
 
 FLT_MAX = float(np.float32(3.4028234663852886e38))
+INF = float("inf")
+# the rank of no candidate: above every visitation rank of every format
+BIG_RANK = 2**30
 
 
 def to_float(v):
@@ -129,6 +132,42 @@ def lex_min_with_index(x, dim):
         best = torch.where(better, v, best)
         idx = torch.where(better, torch.full_like(idx, j), idx)
     return best, idx
+
+
+class LexBest:
+    """Running (error, rank) lexicographic minimum with payload tensors.
+
+    Reproduces the reference's sequential strict-less update: the final
+    winner is the minimum-rank candidate among those achieving the minimum
+    error, where rank is the reference's visitation order.
+    """
+
+    def __init__(self, error, rank, payload: dict):
+        self.error = error
+        self.rank = rank
+        self.payload = payload
+
+    @classmethod
+    def empty(cls, shape, payload_spec: dict, device):
+        """No candidate yet: FLT_MAX error, BIG_RANK, zero int32 payloads of
+        shape `shape + payload_spec[key]`."""
+        error = torch.full(shape, FLT_MAX, dtype=F32, device=device)
+        rank = torch.full(shape, BIG_RANK, dtype=I32, device=device)
+        payload = {k: torch.zeros(shape + extra, dtype=I32, device=device)
+                   for k, extra in payload_spec.items()}
+        return cls(error, rank, payload)
+
+    def update(self, error, rank, payload: dict, extra_valid=None):
+        better = (error < self.error) | ((error == self.error)
+                                         & (rank < self.rank))
+        if extra_valid is not None:
+            better = better & extra_valid
+        self.error = torch.where(better, error, self.error)
+        self.rank = torch.where(better, rank, self.rank)
+        for k in self.payload:
+            extra = self.payload[k].dim() - better.dim()
+            b = better.reshape(better.shape + (1,) * extra)
+            self.payload[k] = torch.where(b, payload[k], self.payload[k])
 
 
 def take_winner(x, win):

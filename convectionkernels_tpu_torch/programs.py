@@ -13,8 +13,8 @@ log2(chunk / BUCKET_MIN) + 1 bucket programs below it.
 
 On a CUDA card a program is a CUDA graph of the configuration's chunk
 body at one bucket size. The first call of a (configuration, bucket) runs
-the body op by op on the bucket's static input, which also builds the
-kernels' libraries and makes the body's device constants (`constant`);
+the body op by op on the bucket's static input, which also builds what
+the body loads at first use and makes its device constants (`constant`);
 the second call captures the body into a graph and replays it; later
 calls copy their chunk into the static input, replay, and copy the bytes
 out before anything else replays. Every graph of a device shares one
@@ -28,8 +28,8 @@ A bucket's first call and its capture are timed as builds of the tracer
 anything reads them.
 
 Inside `eager()` the programs on the card run their bodies op by op too,
-with no capture and no replay (per-launch kernel timing, the eager side of
-a comparison). Nothing enters it on an error: a capture or a replay that
+with no capture and no replay (per-launch timing, the eager side of a
+comparison). Nothing enters it on an error: a capture or a replay that
 fails raises.
 
 Each cache of programs keeps PROGRAM_CACHE_SIZE configurations, least
@@ -70,20 +70,6 @@ def bucket_size(n: int, chunk: int) -> int:
     return min(b, chunk)
 
 
-# --- kernel launch counters ---------------------------------------------------
-
-_COUNTERS: list[collections.Counter] = []
-
-
-def launch_counter() -> collections.Counter:
-    """A Counter of kernel launches for a kernel module, advanced where its
-    wrappers launch. A capture launches nothing, so a program takes back
-    what its capture counted and adds it again on each replay."""
-    counter: collections.Counter = collections.Counter()
-    _COUNTERS.append(counter)
-    return counter
-
-
 # --- device constants ---------------------------------------------------------
 
 _CONSTANTS: dict = {}
@@ -112,6 +98,16 @@ def constant(values, device, dtype=None) -> torch.Tensor:
     return t
 
 
+def i32(values, device) -> torch.Tensor:
+    """An int32 constant on `device` (constant)."""
+    return constant(values, device, np.int32)
+
+
+def lut(table, idx) -> torch.Tensor:
+    """table[idx] for a small constant int32 table, on idx's device."""
+    return i32(table, idx.device)[idx.long()]
+
+
 # --- op-by-op mode --------------------------------------------------------------
 
 _eager_depth = 0
@@ -136,14 +132,12 @@ _POOLS: dict = {}
 
 class _Bucket:
     """One program at one bucket size: on the card its static input, graph,
-    static output, its captures, and the launches its capture counted, as
-    (launch counter, Counter) pairs."""
+    static output and its captures."""
 
     def __init__(self):
         self.static_in = None
         self.graph = None
         self.static_out = None
-        self.launched = []
         self.captures = 0
 
     def capture(self, body, device):
@@ -151,24 +145,14 @@ class _Bucket:
         pool = _POOLS.get(device)
         if pool is None:
             pool = _POOLS[device] = torch.cuda.graph_pool_handle()
-        before = [collections.Counter(c) for c in _COUNTERS]
-        try:
-            with tracing.build("capture", device,
-                               bucket=self.static_in.shape[0]):
-                with torch.cuda.graph(graph, pool=pool):
-                    out = body(self.static_in)
-            self.launched = [(c, c - b) for c, b in zip(_COUNTERS, before)]
-        finally:
-            for counter, saved in zip(_COUNTERS, before):
-                counter.clear()
-                counter.update(saved)
+        with tracing.build("capture", device, bucket=self.static_in.shape[0]):
+            with torch.cuda.graph(graph, pool=pool):
+                out = body(self.static_in)
         self.graph, self.static_out = graph, out
         self.captures += 1
 
     def replay(self) -> torch.Tensor:
         self.graph.replay()
-        for counter, launched in self.launched:
-            counter.update(launched)
         return self.static_out.clone()
 
 

@@ -21,7 +21,7 @@ from convectionkernels_tpu.models import bc7 as jax_bc7
 from convectionkernels_tpu.models import decode as jax_decode
 from convectionkernels_tpu_torch import api
 from convectionkernels_tpu_torch.models import bc6h, bc6h_common, decode
-from convectionkernels_tpu_torch.models.bc7 import LexBest
+from convectionkernels_tpu_torch.ops.lanes import LexBest
 from tests.test_torch_goldens import BC6H_CASES, hdr_blocks, load_bc6h
 
 

@@ -5,22 +5,30 @@ on the same card inputs, encode_bc7, encode_bc6hu and encode_bc6hs on the
 card against the stored JAX bytes, and the S3TC and ETC entry points
 (eager tensor code, no kernel of their own) on the card against the stored
 JAX bytes and against the port on the CPU, and the program layer's CUDA
-graphs against the same encodes run op by op. This file imports nothing of
-JAX, so it runs on a machine without it:
+graphs against the same encodes run op by op. Kernel launches are counted
+at cuda_lib.launch for op-by-op wrapper calls (the `launches` fixture), and
+by name in torch.profiler's trace (chip_smoke.csrc_launches) for encodes
+through the program layer, whose replays launch no kernel from Python.
+This file imports
+nothing of JAX, so it runs on a machine without it:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import pytest
 import torch
 
 import convectionkernels_tpu_torch as ckt
-from convectionkernels_tpu_torch import exact_probe, programs, tracing
+from convectionkernels_tpu_torch import (cuda_lib, exact_probe, programs,
+                                         tracing)
 from convectionkernels_tpu_torch.models import (bc6h, bc6h_kernel, bc7,
                                                 bc7_kernel)
+from chip_smoke import csrc_launches
 from tests import blockgen
 from tests.test_torch_bc6h_combine import (GROUPS, meta_ids_of,
                                            synthetic_chain)
@@ -38,6 +46,10 @@ pytestmark = pytest.mark.cuda
 PLAIN = {"shape_pca": bc7_kernel.shape_pca_plain,
          "single_plane_mode_best": bc7_kernel.single_plane_mode_best_plain,
          "dual_plane_best": bc7_kernel.dual_plane_best_plain}
+# the csrc/ libraries of the BC7 kernels
+BC7_LIBRARIES = ("shape_pca", "single_plane", "dual_plane")
+# a BC6H chunk's launches of each csrc/ library
+BC6H_CHUNK_KERNELS = {"bc6h_group": 6, "bc6h_single": 4, "bc6h_combine": 10}
 
 
 @pytest.fixture
@@ -45,6 +57,29 @@ def card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     return torch.device("cuda:0")
+
+
+@pytest.fixture
+def launches(monkeypatch):
+    """launches(run) -> (run(), {library: launches}): every csrc/ kernel is
+    launched through cuda_lib.launch, so an op-by-op wrapper call's launches
+    are counted there, as they happen. A replayed graph launches nothing
+    there: csrc_launches reads those from a trace."""
+    counts = dict.fromkeys(cuda_lib.SOURCES, 0)
+    real = cuda_lib.launch
+
+    def counted(library, what, *args):
+        real(library, what, *args)
+        counts[library] += 1
+
+    monkeypatch.setattr(cuda_lib, "launch", counted)
+
+    def run_counted(run):
+        counts.update(dict.fromkeys(counts, 0))
+        out = run()
+        return out, dict(counts)
+
+    return run_counted
 
 
 def same_bits(a, b):
@@ -88,12 +123,11 @@ def test_kernels_match_plain_versions(card, monkeypatch):
 @pytest.mark.parametrize("case", LIGHT_CASES, ids=[c[0] for c in LIGHT_CASES])
 def test_encode_light_on_card(card, case):
     px, blocks, flags = load_light(case[0])
-    bc7_kernel.LAUNCHES.clear()
-    got = ckt.encode_bc7(px, ckt.Options(flags=flags, **LIGHT), quality=5,
-                         device=card)
+    got, launched = csrc_launches(lambda: ckt.encode_bc7(
+        px, ckt.Options(flags=flags, **LIGHT), quality=5, device=card))
     assert got.device.type == "cuda"
     np.testing.assert_array_equal(got.cpu().numpy(), blocks)
-    assert all(bc7_kernel.LAUNCHES[k] > 0 for k in PLAIN)
+    assert all(launched[k] > 0 for k in BC7_LIBRARIES), launched
 
 
 def test_encode_q50_on_card(card):
@@ -146,27 +180,27 @@ def pca_mask_lists():
 @pytest.mark.parametrize("shapes", ("1", "81", "215", "243", "one_member",
                                     "high_bits"))
 @pytest.mark.parametrize("n", (1, 31, 32, 33, 1000))
-def test_shape_pca_matches_plain_version(card, n, shapes):
+def test_shape_pca_matches_plain_version(card, launches, n, shapes):
     """Every output bit-equal, for 3 and 4 channels, with and without the
     alpha error, uniform and weighted, at block counts around the 32-block
     group and shape counts around the 4-shape chunk."""
     masks = torch.as_tensor(pca_mask_lists()[shapes], device=card)
     pix = torch.as_tensor(pca_corpus(n, seed=400 + n).reshape(n, 64),
                           dtype=torch.int32, device=card)
-    for nch in (3, 4):
-        for with_alpha in (True, False):
-            for uniform in (False, True):
-                cw = (1.0,) * 4 if uniform else ckt.Options().channel_weights()
-                call = (pix, masks, nch, cw, uniform, with_alpha)
-                before = bc7_kernel.LAUNCHES["shape_pca"]
-                got = bc7_kernel.shape_pca(*call)
-                torch.cuda.synchronize()
-                assert bc7_kernel.LAUNCHES["shape_pca"] == before + 1
-                want = bc7_kernel.shape_pca_plain(*call)
-                what = (nch, with_alpha, uniform)
-                assert (got[2] is None) == (want[2] is None) == (not with_alpha)
-                assert same_outputs([t for t in got if t is not None],
-                                    [t for t in want if t is not None]), what
+    calls = [(pix, masks, nch, (1.0,) * 4 if uniform
+              else ckt.Options().channel_weights(), uniform, with_alpha)
+             for nch in (3, 4) for with_alpha in (True, False)
+             for uniform in (False, True)]
+    outs, launched = launches(
+        lambda: [bc7_kernel.shape_pca(*call) for call in calls])
+    assert launched["shape_pca"] == len(calls)      # one a wrapper call
+    for call, got in zip(calls, outs):
+        nch, _, uniform, with_alpha = call[2:]
+        want = bc7_kernel.shape_pca_plain(*call)
+        what = (nch, with_alpha, uniform)
+        assert (got[2] is None) == (want[2] is None) == (not with_alpha)
+        assert same_outputs([t for t in got if t is not None],
+                            [t for t in want if t is not None]), what
 
 
 @pytest.mark.parametrize("shapes", ("81", "215"))
@@ -174,13 +208,11 @@ def test_shape_pca_every_chunk_matches_plain_version(card, shapes):
     """Each chunk the C entry point takes (1, 2 or 4 shapes a warp takes at
     once) gives the plain version's bits; the wrapper passes 4 with the
     alpha error and 2 without. Chunks of 0 and 3 are refused."""
-    from convectionkernels_tpu_torch import cuda_lib
     masks = torch.as_tensor(pca_mask_lists()[shapes], device=card)
     n, s_count = 33, masks.shape[0]
     pix = torch.as_tensor(pca_corpus(n, seed=450).reshape(n, 64),
                           dtype=torch.int32, device=card)
     cw = ckt.Options().channel_weights()
-    fn = cuda_lib.function("shape_pca")
     for nch, with_alpha in ((3, True), (4, False)):
         want = bc7_kernel.shape_pca_plain(pix, masks, nch, cw, False,
                                           with_alpha)
@@ -190,16 +222,20 @@ def test_shape_pca_every_chunk_matches_plain_version(card, shapes):
             offset = torch.zeros_like(base)
             alpha = torch.zeros((n, s_count), dtype=torch.float32,
                                 device=card)
-            err = fn(pix.data_ptr(), masks.data_ptr(), n, s_count, nch,
-                     bc7_kernel._cw_array(cw), 0, int(with_alpha), chunk,
-                     base.data_ptr(), offset.data_ptr(),
-                     alpha.data_ptr() if with_alpha else None,
-                     bc7_kernel._stream())
-            torch.cuda.synchronize()
+
+            def launch():
+                cuda_lib.launch("shape_pca", f"shape_pca(chunk {chunk})",
+                                pix, masks, n, s_count, nch,
+                                bc7_kernel._cw_array(cw), 0, int(with_alpha),
+                                chunk, base, offset,
+                                alpha if with_alpha else None)
+                torch.cuda.synchronize()
+
             if chunk in (0, 3):
-                assert err != 0
+                with pytest.raises(RuntimeError, match="launch failed"):
+                    launch()
                 continue
-            assert err == 0
+            launch()
             got = [base, offset] + ([alpha] if with_alpha else [])
             assert same_outputs(got, [t for t in want if t is not None]), \
                 (nch, chunk)
@@ -314,7 +350,7 @@ BC6H_KERNEL_CASES = (
 
 @pytest.mark.parametrize("case", BC6H_KERNEL_CASES,
                          ids=[c[0] for c in BC6H_KERNEL_CASES])
-def test_bc6h_kernel_matches_plain_version(card, case):
+def test_bc6h_kernel_matches_plain_version(card, launches, case):
     """All four outputs bit-equal, on ordinary and edge-value blocks, at a
     block count that is no multiple of anything."""
     _, is_signed, fast, uniform, aprec, tweaks, refines = case
@@ -328,12 +364,11 @@ def test_bc6h_kernel_matches_plain_version(card, case):
     base = torch.stack([b[:, cols] for b in ufep_base], dim=1).contiguous()
     offset = torch.stack([o[:, cols] for o in ufep_offset],
                          dim=1).contiguous()
-    before = bc6h_kernel.LAUNCHES["partitioned_group_meta_rounds"]
-    got = bc6h_kernel.partitioned_group_meta_rounds(
-        pix, base, offset, aprec, is_signed, fast, uniform, cw, tweaks,
-        refines)
-    torch.cuda.synchronize()
-    assert bc6h_kernel.LAUNCHES["partitioned_group_meta_rounds"] == before + 1
+    got, launched = launches(
+        lambda: bc6h_kernel.partitioned_group_meta_rounds(
+            pix, base, offset, aprec, is_signed, fast, uniform, cw, tweaks,
+            refines))
+    assert launched["bc6h_group"] == 1
     want = bc6h_kernel.partitioned_group_meta_rounds_plain(
         pix, base, offset, aprec, is_signed, fast, uniform, cw, tweaks,
         refines)
@@ -352,14 +387,12 @@ def test_encode_bc6h_on_card(card, case):
     name, _, signed, flags, seed_points, refine_rounds = case
     px, blocks, _ = load_bc6h(name)
     encode = ckt.encode_bc6hs if signed else ckt.encode_bc6hu
-    bc6h_kernel.LAUNCHES.clear()
-    got = encode(px, ckt.Options(flags=flags, seed_points=seed_points,
-                                 refine_rounds_bc6h=refine_rounds))
+    got, launched = csrc_launches(lambda: encode(px, ckt.Options(
+        flags=flags, seed_points=seed_points,
+        refine_rounds_bc6h=refine_rounds)))
     assert got.device.type == "cuda"        # device=None: the card
     np.testing.assert_array_equal(got.cpu().numpy(), blocks)
-    assert bc6h_kernel.LAUNCHES["partitioned_group_meta_rounds"] == 6
-    assert bc6h_kernel.LAUNCHES["single_group_meta_rounds"] == 4
-    assert bc6h_kernel.LAUNCHES["combine"] == 10
+    assert {k: launched[k] for k in BC6H_CHUNK_KERNELS} == BC6H_CHUNK_KERNELS
 
 
 def test_bc6h_wrapper_checks_its_inputs(card):
@@ -408,8 +441,8 @@ def single_chain_inputs(px, is_signed, cw, card):
 
 @pytest.mark.parametrize("fast", [False, True], ids=["slow", "fast"])
 @pytest.mark.parametrize("signed", [False, True], ids=["unsigned", "signed"])
-def test_bc6h_single_matches_plain_on_golden_chains(card, signed, fast,
-                                                    monkeypatch):
+def test_bc6h_single_matches_plain_on_golden_chains(card, launches, signed,
+                                                    fast, monkeypatch):
     """Every single-mode group of a pack of the blocks of every stored
     BC6H golden of that signedness, at 4 x 3 and 1 x 1 rounds: one launch
     each, its four outputs bit-equal to the plain version's."""
@@ -418,9 +451,8 @@ def test_bc6h_single_matches_plain_on_golden_chains(card, signed, fast,
     real, seen = bc6h_kernel.single_group_meta_rounds, []
 
     def checked(*args):
-        before = bc6h_kernel.LAUNCHES["single_group_meta_rounds"]
-        got = real(*args)
-        assert bc6h_kernel.LAUNCHES["single_group_meta_rounds"] == before + 1
+        got, launched = launches(lambda: real(*args))
+        assert launched["bc6h_single"] == 1
         want = bc6h_kernel.single_group_meta_rounds_plain(*args)
         for name, a, b in zip(("err", "valid", "eps", "idx"), got, want):
             assert a.dtype == b.dtype and same_bits(a, b), (args[3], name)
@@ -442,7 +474,7 @@ SINGLE_KERNEL_CASES = [(aprec, signed, fast) for aprec in SINGLE_APRECS
 @pytest.mark.parametrize("case", SINGLE_KERNEL_CASES, ids=[
     f"aprec{a}_{'signed' if s else 'unsigned'}_{'fast' if f else 'slow'}"
     for a, s, f in SINGLE_KERNEL_CASES])
-def test_bc6h_single_matches_plain_synthetic(card, case):
+def test_bc6h_single_matches_plain_synthetic(card, launches, case):
     """Ordinary, edge-value and range-end blocks (0, 31743 and, signed,
     -31743), 1,024 + a few of them (no multiple of the 4 blocks a CUDA
     block holds), at every rounds setting 1..4 x 1..3, weighted and
@@ -458,20 +490,18 @@ def test_bc6h_single_matches_plain_synthetic(card, case):
         opts = ckt.Options(flags=ckt.Flags.UNIFORM if uniform else 0)
         cw = [float(np.float32(w)) for w in opts.channel_weights()[:3]]
         pix, base, offset = single_chain_inputs(px, is_signed, cw, card)
-        for tweaks in range(1, 5):
-            for refines in range(1, 4):
-                call = (pix, base, offset, aprec, is_signed, fast, uniform,
-                        cw, tweaks, refines)
-                before = bc6h_kernel.LAUNCHES["single_group_meta_rounds"]
-                got = bc6h_kernel.single_group_meta_rounds(*call)
-                torch.cuda.synchronize()
-                assert bc6h_kernel.LAUNCHES["single_group_meta_rounds"] == \
-                    before + 1
-                want = bc6h_kernel.single_group_meta_rounds_plain(*call)
-                for name, a, b in zip(("err", "valid", "eps", "idx"), got,
-                                      want):
-                    assert a.dtype == b.dtype and same_bits(a, b), \
-                        (uniform, tweaks, refines, name)
+        calls = [(pix, base, offset, aprec, is_signed, fast, uniform, cw,
+                  tweaks, refines)
+                 for tweaks in range(1, 5) for refines in range(1, 4)]
+        outs, launched = launches(
+            lambda: [bc6h_kernel.single_group_meta_rounds(*call)
+                     for call in calls])
+        assert launched["bc6h_single"] == len(calls)    # one a wrapper call
+        for call, got in zip(calls, outs):
+            want = bc6h_kernel.single_group_meta_rounds_plain(*call)
+            for name, a, b in zip(("err", "valid", "eps", "idx"), got, want):
+                assert a.dtype == b.dtype and same_bits(a, b), \
+                    (uniform, call[8], call[9], name)
     for n in (1, 2, 5):
         call = (pix[:n].contiguous(), base[:n].contiguous(),
                 offset[:n].contiguous(), aprec, is_signed, fast, uniform, cw,
@@ -492,7 +522,7 @@ def test_bc6h_single_matches_plain_synthetic(card, case):
     assert 0 < int(valid.sum()) < valid.numel()
 
 
-def test_bc6h_single_wrapper_checks_its_inputs(card):
+def test_bc6h_single_wrapper_checks_its_inputs(card, launches):
     pix = torch.zeros((4, 48), dtype=torch.int32, device=card)
     line = torch.zeros((4, 3), dtype=torch.float32, device=card)
     cw = ckt.Options().channel_weights()
@@ -512,10 +542,10 @@ def test_bc6h_single_wrapper_checks_its_inputs(card):
         run(pix, line, line, 16, False, False, False, cw, 5, 3)
     with pytest.raises(ValueError):
         run(pix, line, line, 9, False, False, False, cw, 4, 3)
-    before = bc6h_kernel.LAUNCHES["single_group_meta_rounds"]
-    out = run(pix[:0], line[:0], line[:0], 16, False, False, False, cw, 4, 3)
+    out, launched = launches(lambda: run(
+        pix[:0], line[:0], line[:0], 16, False, False, False, cw, 4, 3))
     assert out[3].shape == (0, 12, 16, 1)
-    assert bc6h_kernel.LAUNCHES["single_group_meta_rounds"] == before
+    assert launched["bc6h_single"] == 0
 
 # --- BC6H's combine: the kernel against its plain version ---------------------------
 
@@ -535,8 +565,9 @@ def same_combine(got, want):
 @pytest.mark.parametrize("rounds", [(1, 1), (2, 3), (4, 3)],
                          ids=["1x1", "2x3", "4x3"])
 @pytest.mark.parametrize("signed", [False, True], ids=["unsigned", "signed"])
-def test_bc6h_combine_matches_plain_on_golden_chains(card, signed, rounds,
-                                                     fast, monkeypatch):
+def test_bc6h_combine_matches_plain_on_golden_chains(card, launches, signed,
+                                                     rounds, fast,
+                                                     monkeypatch):
     """Every group's combine in a pack of the blocks of every stored BC6H
     golden of that signedness: one launch each, bit-equal to the plain
     version on the same chain outputs."""
@@ -545,9 +576,8 @@ def test_bc6h_combine_matches_plain_on_golden_chains(card, signed, rounds,
     real, seen = bc6h_kernel.combine, []
 
     def checked(*args):
-        before = bc6h_kernel.LAUNCHES["combine"]
-        got = real(*args)
-        assert bc6h_kernel.LAUNCHES["combine"] == before + 1
+        got, launched = launches(lambda: real(*args))
+        assert launched["bc6h_combine"] == 1
         assert same_combine(got, bc6h_kernel.combine_plain(*args)) is None
         seen.append(args[4])
         return got
@@ -566,7 +596,7 @@ COMBINE_SIZES = [(g, n) for g in range(len(GROUPS)) for n in (0, 1, 33)] + [
 @pytest.mark.parametrize("case", COMBINE_SIZES,
                          ids=[f"{'p' if GROUPS[g][0] else 's'}{GROUPS[g][1]}"
                               f"_n{n}" for g, n in COMBINE_SIZES])
-def test_bc6h_combine_matches_plain_synthetic(card, case):
+def test_bc6h_combine_matches_plain_synthetic(card, launches, case):
     """Synthetic chain outputs (planted ties across partitions and rounds,
     rows with no valid pair, +inf errors) of every precision group at 12
     rounds, N = 0, 1 and 33, and 65,537 blocks (rows drawn from 1,024) for
@@ -581,10 +611,8 @@ def test_bc6h_combine_matches_plain_synthetic(card, case):
         0, pool[0].shape[0], size=n), device=card)
     chain = [a.index_select(0, rows).contiguous() for a in pool]
     args = (*chain, group[1], group[2], meta_ids, 4 * 144 + g)
-    before = bc6h_kernel.LAUNCHES["combine"]
-    got = bc6h_kernel.combine(*args)
-    torch.cuda.synchronize()
-    assert bc6h_kernel.LAUNCHES["combine"] == before + (1 if n else 0)
+    got, launched = launches(lambda: bc6h_kernel.combine(*args))
+    assert launched["bc6h_combine"] == (1 if n else 0)
     assert got[0].shape == (n,) and got[2]["idx"].shape == (n, 16)
     assert same_combine(got, bc6h_kernel.combine_plain(*args)) is None
     if n == 33:     # the plain version on the CPU agrees as well
@@ -627,12 +655,10 @@ def test_bc6h_replayed_program_equals_its_first_call(card):
                            refine_rounds_bc6h=case[5])
         outs = []
         for _ in range(3):
-            bc6h_kernel.LAUNCHES.clear()
-            outs.append(ckt.encode_bc6hu(px, opts, device=card))
-            torch.cuda.synchronize()
-            assert bc6h_kernel.LAUNCHES["combine"] == 10
-            assert bc6h_kernel.LAUNCHES["partitioned_group_meta_rounds"] == 6
-            assert bc6h_kernel.LAUNCHES["single_group_meta_rounds"] == 4
+            out, launched = csrc_launches(
+                lambda: ckt.encode_bc6hu(px, opts, device=card))
+            outs.append(out)
+            assert {k: launched[k] for k in BC6H_CHUNK_KERNELS} == BC6H_CHUNK_KERNELS
         for out in outs:
             np.testing.assert_array_equal(out.cpu().numpy(), blocks)
         assert graph_captures() == [1]
@@ -775,30 +801,105 @@ def cli_image():
     return image.unblockify(chip_smoke.make_texture(seed=0, size=64), 64, 64)
 
 
-@pytest.mark.parametrize("flags", (["-f", "bc7", "-q", "5"], ["-f", "bc1"]),
-                         ids=("bc7_q5", "bc1"))
-def test_cli_on_card_equals_cpu(card, flags, tmp_path, monkeypatch):
+def check_container_header(path, fmt, sizes):
+    """The header and length of the DDS or KTX file `path` are those of the
+    container format `fmt` with level sizes `sizes` [(width, height)]."""
+    import struct
+
+    from convectionkernels_tpu_torch.utils import containers as ct
+    data = path.read_bytes()
+    width = ct.BLOCK_BYTES[fmt]
+    nbytes = [((w + 3) // 4) * ((h + 3) // 4) * width for w, h in sizes]
+    (w0, h0), mips = sizes[0], len(sizes)
+    if path.suffix == ".dds":
+        flags = 0x1 | 0x2 | 0x4 | 0x1000 | 0x80000 | (0x20000 if mips > 1
+                                                       else 0)
+        assert data[:4] == b"DDS "
+        assert struct.unpack_from("<7I", data, 4) == (
+            124, flags, h0, w0, max(1, (w0 + 3) // 4) * width, 0, mips)
+        assert struct.unpack_from("<2I4s", data, 76) == (32, 0x4, b"DX10")
+        assert struct.unpack_from("<I", data, 108)[0] == \
+            0x1000 | (0x400008 if mips > 1 else 0)
+        assert struct.unpack_from("<5I", data, 128) == (
+            ct.DXGI_FORMATS[fmt], 3, 0, 1, 0)
+        assert len(data) == 148 + sum(nbytes)
+        return
+    assert data[:12] == ct._KTX_MAGIC
+    assert struct.unpack_from("<13I", data, 12) == (
+        0x04030201, 0, 1, 0, ct.GL_INTERNAL_FORMATS[fmt],
+        ct.GL_BASE_FORMATS[fmt], w0, h0, 0, 0, 1, mips, 0)
+    pos = 64
+    for i, n in enumerate(nbytes):
+        assert struct.unpack_from("<I", data, pos)[0] == n, f"level {i}"
+        pos += 4 + n + (-n) % 4
+    assert len(data) == pos
+
+
+# (name, flags, output file, container format, csrc/ libraries the run
+# must launch); "_module" runs the card's side as
+# `python -m convectionkernels_tpu_torch.cli`, whose launches this process
+# cannot see
+CLI_CASES = (
+    ("bc7_q5", ["-f", "bc7", "-q", "5"], "out.dds", "bc7", BC7_LIBRARIES),
+    ("bc7_q5_module", ["-f", "bc7", "-q", "5"], "out.dds", "bc7", ()),
+    ("bc1", ["-f", "bc1"], "out.dds", "bc1", ()),
+    ("bc6h", ["-f", "bc6h"], "out.dds", "bc6h_uf",
+     tuple(BC6H_CHUNK_KERNELS)),
+    ("etc2_mips", ["-f", "etc2", "-mips"], "out.ktx", "etc2", ()),
+    ("eac_rg11", ["-f", "eac_rg11"], "out.ktx", "eac_rg11", ()),
+)
+
+
+@pytest.mark.parametrize("case", CLI_CASES, ids=[c[0] for c in CLI_CASES])
+def test_cli_on_card_equals_cpu(card, case, tmp_path):
     """The CLI with the card (device=None) writes the file it writes on the
-    CPU; the BC7 run launches each of the three BC7 kernels."""
+    CPU, with its container's header for every level; a BC7 or BC6H run
+    launches each kernel of its format."""
+    import os
+    import subprocess
+    import sys
+
     from convectionkernels_tpu_torch import cli
+    from convectionkernels_tpu_torch.utils import image
+    name, flags, out, fmt, libraries = case
+    img = cli_image()
     src = str(tmp_path / "in.npy")
-    np.save(src, cli_image())
-    bc7_kernel.LAUNCHES.clear()
-    assert cli.main(flags + [src, str(tmp_path / "card.dds")]) == 0
-    launched = {k: bc7_kernel.LAUNCHES[k] for k in PLAIN}
-    assert cli.main(flags + [src, str(tmp_path / "cpu.dds")],
-                    device="cpu") == 0
-    assert (tmp_path / "card.dds").read_bytes() == \
-        (tmp_path / "cpu.dds").read_bytes()
-    if flags[1] == "bc7":
-        assert all(launched.values()), launched
+    np.save(src, img)
+    card_path, cpu_path = tmp_path / f"card_{out}", tmp_path / f"cpu_{out}"
+    if name.endswith("_module"):
+        repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        proc = subprocess.run(
+            [sys.executable, "-m", "convectionkernels_tpu_torch.cli", *flags,
+             src, str(card_path)], cwd=repo, capture_output=True, text=True,
+            env=dict(os.environ, PYTHONPATH=repo), timeout=600)
+        assert proc.returncode == 0, proc.stderr[-2000:]
+        launched = {}
+    else:
+        rc, launched = csrc_launches(
+            lambda: cli.main(flags + [src, str(card_path)]))
+        assert rc == 0
+    assert cli.main(flags + [src, str(cpu_path)], device="cpu") == 0
+    assert card_path.read_bytes() == cpu_path.read_bytes()
+    levels = image.mip_chain(img) if "-mips" in flags else [img]
+    check_container_header(card_path, fmt, [(level.shape[1], level.shape[0])
+                                            for level in levels])
+    assert all(launched[k] > 0 for k in libraries), launched
 
 
-def test_encode_sharded_on_card_equals_one_call(card):
+SHARDED = (("bc1", ckt.encode_bc1, 203, 2),
+           ("bc7_q50", functools.partial(ckt.encode_bc7, quality=50), 203, 3),
+           ("etc2_punchthrough", ckt.encode_etc2_punchthrough, 203, 3))
+
+
+@pytest.mark.parametrize("case", SHARDED, ids=[c[0] for c in SHARDED])
+def test_encode_sharded_on_card_equals_one_call(card, case):
+    """encode_sharded over slices of one card (a block count no multiple
+    of them) equals one call."""
     from convectionkernels_tpu_torch.parallel import sharding
-    px = blockgen.mixed_blocks(203, seed=807)
-    want = ckt.encode_bc1(px, device=card).cpu().numpy()
-    got = sharding.encode_sharded(ckt.encode_bc1, px, [card, card])
+    _, encode, n, slices = case
+    px = blockgen.mixed_blocks(n, seed=807)
+    want = encode(px, device=card).cpu().numpy()
+    got = sharding.encode_sharded(encode, px, [card] * slices)
     np.testing.assert_array_equal(got, want)
 
 
@@ -827,6 +928,15 @@ def test_nccl_world_of_one_assembles(card):
     np.testing.assert_array_equal(got, want)
 
 
+def test_two_process_gloo_encode_on_card(card, tmp_path):
+    """Two gloo processes sharing the card (NCCL refuses two ranks on one
+    card), encode_image_distributed of encode_bc1 on it: each rank's local
+    bytes are its slice of one call's, and each rank's assembled bytes are
+    all of them."""
+    from tests.test_torch_parallel import check_two_gloo_processes
+    check_two_gloo_processes(tmp_path, str(card))
+
+
 # --- programs: a CUDA graph of each configuration and bucket ----------------------
 
 def graph_encoders(card):
@@ -852,14 +962,53 @@ def no_programs():
     programs.release_programs()
 
 
-@pytest.mark.parametrize("name", ("bc7_q5", "bc1", "etc2_punchthrough"))
+# the stored goldens, as family/case: q50 and every BC6H, S3TC and ETC case
+GOLDEN_REPLAYS = (("bc7/q50",) + tuple(f"bc6h/{c[0]}" for c in BC6H_CASES)
+                  + tuple(f"s3tc/{c[0]}" for c in S3TC_CASES)
+                  + tuple(f"etc/{c[0]}" for c in ETC_CASES))
+
+
+def golden_encoder(name, card):
+    """(A no-argument encode on the card of the blocks of the stored golden
+    `name` (GOLDEN_REPLAYS), through its entry point and Options; the
+    stored JAX bytes)."""
+    family, _, case = name.partition("/")
+    if family == "bc7":
+        px, blocks, _ = load_q50()
+        return lambda: ckt.encode_bc7(px, quality=50, device=card), blocks
+    if family == "bc6h":
+        ((_, _, signed, flags, seed_points, rounds),) = [
+            c for c in BC6H_CASES if c[0] == case]
+        px, blocks, _ = load_bc6h(case)
+        encode = ckt.encode_bc6hs if signed else ckt.encode_bc6hu
+        opts = ckt.Options(flags=flags, seed_points=seed_points,
+                           refine_rounds_bc6h=rounds)
+        return lambda: encode(px, opts, device=card), blocks
+    if family == "s3tc":
+        ((_, fmt, _, fields),) = [c for c in S3TC_CASES if c[0] == case]
+        px, blocks, _ = load_s3tc(case)
+        return lambda: s3tc_encode(fmt, fields, px, card), blocks
+    ((_, entry, _, flags, threshold),) = [c for c in ETC_CASES
+                                          if c[0] == case]
+    px, _, blocks, _ = load_etc(case)
+    return lambda: etc_encode(entry, flags, px, card, threshold), blocks
+
+
+@pytest.mark.parametrize("name", ("bc7_q5", "bc1", "etc2_punchthrough")
+                         + GOLDEN_REPLAYS)
 def test_replayed_bytes_equal_eager_bytes(card, no_programs, name):
     """The first call (op by op on the static input), the second (capture,
     then replay) and the third (replay) give the bytes of the body run op
-    by op under programs.eager(); each bucket is captured once."""
-    encode = graph_encoders(card)[name]
+    by op under programs.eager(); each bucket is captured once. A stored
+    golden's configuration gives the golden's bytes on every call."""
+    if "/" in name:
+        encode, golden = golden_encoder(name, card)
+    else:
+        encode, golden = graph_encoders(card)[name], None
     with programs.eager():
         want = encode()
+    if golden is not None:
+        np.testing.assert_array_equal(want.cpu().numpy(), golden)
     assert not any(graph_captures())
     for _ in range(3):
         torch.testing.assert_close(encode(), want, rtol=0, atol=0)
@@ -899,10 +1048,10 @@ def test_second_call_in_a_bucket_captures_no_more(card, no_programs):
     with programs.eager():
         want = ckt.encode_bc7(px, quality=5, device=card)
     for n in (40, 72, 40, 72, 72):
-        bc7_kernel.LAUNCHES.clear()
-        got = ckt.encode_bc7(px[:n], quality=5, device=card)
+        got, launched = csrc_launches(
+            lambda: ckt.encode_bc7(px[:n], quality=5, device=card))
         torch.testing.assert_close(got, want[:n], rtol=0, atol=0)
-        assert all(bc7_kernel.LAUNCHES[k] > 0 for k in PLAIN)
+        assert all(launched[k] > 0 for k in BC7_LIBRARIES), launched
     (program,) = programs.programs()
     assert list(program.buckets) == [(256, 16, 4)]
     assert program.buckets[(256, 16, 4)].captures == 1

@@ -1,11 +1,13 @@
 """The port's block axis split on the CPU: encode_sharded over several
 devices and encode_image_distributed over two gloo processes give the
 bytes of one call; blockify_local_slice gives the JAX package's slices.
+tests/test_torch_cuda.py runs the two processes on one card as well.
 
 Tolerance 0: bytes are compared as bytes. The two-process test starts this
 file as its worker:
 
-    python -m tests.test_torch_parallel <init_method> <world> <rank> <outdir>
+    python -m tests.test_torch_parallel <init_method> <world> <rank> \
+        <outdir> <device>
 """
 
 from __future__ import annotations
@@ -159,10 +161,18 @@ def test_two_process_gloo_encode(tmp_path):
     """Two gloo processes on the CPU: each rank's local bytes are its slice
     of one call's bytes, and the assembled bytes on each rank are all of
     them."""
+    check_two_gloo_processes(tmp_path, "cpu")
+
+
+def check_two_gloo_processes(tmp_path, device):
+    """Two gloo worker processes encoding worker_image() with encode_bc1 on
+    `device` (tests/test_torch_cuda.py runs them on one card): each rank's
+    local bytes are its slice of one call's, and each rank's assembled
+    bytes are all of them."""
     init_method = f"tcp://localhost:{free_port()}"
     workers = [subprocess.Popen(
         [sys.executable, "-m", "tests.test_torch_parallel", init_method, "2",
-         str(rank), str(tmp_path)], cwd=REPO,
+         str(rank), str(tmp_path), device], cwd=REPO,
         env=dict(os.environ, PYTHONPATH=REPO), stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT, text=True) for rank in range(2)]
     try:
@@ -174,7 +184,7 @@ def test_two_process_gloo_encode(tmp_path):
     for rank, w in enumerate(workers):
         assert w.returncode == 0, f"rank {rank}:\n{outs[rank]}"
     want = ckt.encode_bc1(image.blockify(worker_image()),
-                          device="cpu").numpy()
+                          device=device).cpu().numpy()
     locals_ = []
     for rank in range(2):
         with np.load(tmp_path / f"rank{rank}.npz") as z:
@@ -186,15 +196,15 @@ def test_two_process_gloo_encode(tmp_path):
     np.testing.assert_array_equal(np.concatenate(locals_), want)
 
 
-def _worker(init_method, world, rank, outdir):
+def _worker(init_method, world, rank, outdir, device):
     torch.set_num_threads(1)
     distributed.initialize("gloo", init_method, int(world), int(rank))
     try:
         img = worker_image()
         local, start, n_blocks = distributed.encode_image_distributed(
-            ckt.encode_bc1, img, device="cpu")
+            ckt.encode_bc1, img, device=device)
         full = distributed.encode_image_distributed(
-            ckt.encode_bc1, img, device="cpu", assemble=True)
+            ckt.encode_bc1, img, device=device, assemble=True)
         np.savez(os.path.join(outdir, f"rank{rank}.npz"), local=local,
                  start=start, n_blocks=n_blocks, full=full)
     finally:

@@ -7,8 +7,8 @@ CUDA graph can capture it": a graph cannot capture a copy from host
 memory or a read of device data on the host).
 
 On the CPU a program runs its body op by op on the padded blocks; the
-CUDA graphs themselves are held against the eager bytes on the card
-(tests/test_torch_cuda.py, chip_smoke.py's `programs` phase).
+CUDA graphs themselves are held against the eager bytes and the stored
+goldens on the card (tests/test_torch_cuda.py).
 """
 
 from __future__ import annotations

@@ -247,34 +247,6 @@ def test_shape_pca_q50_lists_against_a_hand_count():
             ops / chip_smoke.H100_ISSUE_LANE_OPS_PER_S * 1e3, "operations")
 
 
-def test_pca_chunk_sweep_launches_each_chunk_at_each_length(monkeypatch):
-    """--pca-chunks: the C entry point takes every chunk at every list
-    length, the first S of the 243 shapes, RGB lists with the alpha error;
-    the launch and its timing are faked, as there is no card here."""
-    from convectionkernels_tpu_torch import cuda_lib
-    calls = []
-
-    def fake_function(name):
-        def launch(*args):
-            assert len(args) == len(cuda_lib.SIGNATURES[name][1])
-            calls.append((args[3], args[4], args[7], args[8],
-                          args[11] is not None))
-            return 0
-        return launch
-
-    monkeypatch.setattr(cuda_lib, "function", fake_function)
-    monkeypatch.setattr(bc7_kernel, "_stream", lambda: 0)
-    monkeypatch.setattr(chip_smoke, "time_alone",
-                        lambda fn, args: (fn(*args), 0.5)[1])
-    pix = torch.zeros((33, 64), dtype=torch.int32)
-    sweep = chip_smoke.pca_chunk_sweep(pix, [1.0] * 4, False, [1, 81, 243])
-    assert sweep == {nch: {s: {1: 0.5, 2: 0.5, 4: 0.5} for s in (1, 81, 243)}
-                     for nch in (3, 4)}
-    assert calls == [(s, nch, int(nch == 3), chunk, nch == 3)
-                     for nch in (3, 4) for s in (1, 81, 243)
-                     for chunk in (1, 2, 4)]
-
-
 def single_group_args(n, is_signed=False, fast=False, uniform=False,
                       tweaks=4, refines=3):
     """The argument tuple of bc6h_kernel.single_group_meta_rounds at n
