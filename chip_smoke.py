@@ -24,8 +24,8 @@ Steps, each printed as a JSON line; a failed check prints
      op-by-op encode, each bucket captured once; one replay timed with
      CUDA events, and the csrc/ kernels of another read by name from a
      torch.profiler trace (csrc_launches), which must equal the op-by-op
-     launches (`replay`);
-  4. each of the six kernels on every launch's arguments: BACK_TO_BACK
+     launches and CHUNK_LAUNCHES (`replay`);
+  4. each of the seven kernels on every launch's arguments: BACK_TO_BACK
      (20) launches in a row after a warm-up, the work model's bound, and
      its outputs against the plain version's on the same inputs (every
      PLAIN_STRIDE-th block; outputs compared as int32 bits, so the
@@ -88,22 +88,36 @@ KERNELS = {
         module="bc6h_kernel", library="bc6h_combine",
         replaces="XLA ops of convectionkernels_tpu/models/bc6h.py "
                  "(BC67.cpp:2914-2986)"),
+    "bc7_pack": dict(
+        module="bc7_kernel", library="bc7_pack",
+        replaces="XLA ops of convectionkernels_tpu/models/bc7.py:1303-1459 "
+                 "(_pack_mode_bits, _pack_bits)"),
 }
 BACK_TO_BACK = 20
 
-# positions of each wrapper's arguments whose leading axis is the block
-# axis (every output's leading axis is)
+# each configuration's launches of each csrc/ library in one 65,536-block
+# chunk, op by op and replayed alike
+CHUNK_LAUNCHES = {
+    "bc7_q50": {"shape_pca": 2, "single_plane": 6, "dual_plane": 1,
+                "bc7_pack": 1},
+    "bc6hu": {"bc6h_group": 6, "bc6h_single": 4, "bc6h_combine": 10},
+    "etc2_rgba": {}}
+
+# positions of each wrapper's arguments that have a block axis (every
+# output's leading axis is the block axis), and that axis where it is not
+# the leading one
 ROW_ARGS = {"shape_pca": (0,), "single_plane_mode_best": (1, 2, 3, 4, 5),
             "dual_plane_best": (0,),
             "partitioned_group_meta_rounds": (0, 1, 2),
             "single_group_meta_rounds": (0, 1, 2),
-            "combine": (0, 1, 2, 3)}
+            "combine": (0, 1, 2, 3), "bc7_pack": (0,)}
+ROW_AXIS = {"bc7_pack": 1}      # pack_fields' [fields, N]
 # the plain versions run on every PLAIN_STRIDE-th block of a launch: the
 # BC7 kernels' and the partitioned chain's plain versions hold [N, lanes]
 # tensors of every pixel and channel, too large at 65,536 blocks
 PLAIN_STRIDE = {"shape_pca": 64, "single_plane_mode_best": 64,
                 "dual_plane_best": 64, "partitioned_group_meta_rounds": 64,
-                "single_group_meta_rounds": 1, "combine": 1}
+                "single_group_meta_rounds": 1, "combine": 1, "bc7_pack": 1}
 # what tells one launch of a kernel from another: (label, argument position)
 LAUNCH_TAG = {"shape_pca": ("nch", 2), "single_plane_mode_best": ("mode", 0),
               "partitioned_group_meta_rounds": ("aprec", 3),
@@ -317,6 +331,43 @@ def work_bc6h_combine(args):
     return nbytes, n * candidates * 3
 
 
+def work_bc7_pack(args):
+    """csrc/bc7_pack.cu, per block the fields of its own mode: its rows of
+    pack_fields' int32 [60, N] read once (the mode; the partition in a
+    multi-subset mode; the rotation and index selector where the mode has
+    them; 3 channels an endpoint, 4 with alpha; 16 indexes, 16 more with
+    separate alpha), 16 bytes written once, and the lookup tables read
+    once; 3 operations a static field (the value's shift, the place's
+    shift and the or) and 12 an index field at a per-block offset (its
+    flip's test and select, the 4 words' range tests, shifts and ors for
+    the words it touches, the offset's update). A block outside modes 0-7
+    reads its mode and writes zeros."""
+    import numpy as np
+
+    from convectionkernels_tpu_torch.models import bc7_kernel
+    from convectionkernels_tpu_torch.models.bc7_common import MODE_INFO
+    fields = args[0]
+    rows, ops = [1] * 9, [0] * 9          # 8: outside modes 0-7
+    for m in range(8):
+        info = MODE_INFO[m]
+        ns, separate = info["num_subsets"], info["alpha"] == "separate"
+        channels = 3 if info["alpha"] == "none" else 4
+        rows[m] = (1 + (ns > 1) + separate + info["has_index_selector"]
+                   + 2 * ns * channels + (32 if separate else 16))
+        static = (1 + (info["partition_bits"] > 0) + separate
+                  + info["has_index_selector"] + 6 * ns
+                  + (2 * ns if info["alpha_bits"] else 0)
+                  + {"none": 0, "per_subset": ns, "per_ep": 2 * ns}[
+                      info["pbit"]])
+        ops[m] = 3 * static + 12 * (32 if separate else 16)
+    mode = _host(fields[bc7_kernel.FIELD_MODE]).astype(np.int64)
+    blocks = np.bincount(np.where((mode >= 0) & (mode < 8), mode, 8),
+                         minlength=9)
+    nbytes = (int((blocks * (4 * np.array(rows) + 16)).sum())
+              + bc7_kernel.PACK_TABLES.nbytes)
+    return nbytes, int((blocks * np.array(ops)).sum())
+
+
 def bound_ms(nbytes, ops):
     """The least time in ms the card could take to move `nbytes` and do
     `ops` operations, and which of the two bounds it."""
@@ -331,7 +382,8 @@ WORK = {"shape_pca": work_shape_pca,
         "dual_plane_best": work_dual_plane,
         "partitioned_group_meta_rounds": work_bc6h_group,
         "single_group_meta_rounds": work_bc6h_single,
-        "combine": work_bc6h_combine}
+        "combine": work_bc6h_combine,
+        "bc7_pack": work_bc7_pack}
 
 
 # --- inputs, shared with the card tests and the benchmark's tests ------------
@@ -553,9 +605,10 @@ def launch_row(name, kernel, plain, args, ms_in_encode):
     import torch
     ms_alone = time_alone(kernel, args)
     got = flat_outputs(kernel(*args))
-    n = args[ROW_ARGS[name][0]].shape[0]
+    axis = ROW_AXIS.get(name, 0)
+    n = args[ROW_ARGS[name][0]].shape[axis]
     rows = torch.arange(0, n, PLAIN_STRIDE[name], device=got[0].device)
-    sub = [a.index_select(0, rows) if i in ROW_ARGS[name] else a
+    sub = [a.index_select(axis, rows) if i in ROW_ARGS[name] else a
            for i, a in enumerate(args)]
     plain_ms, want = timed(lambda: plain(*sub))
     same, max_err = compare([t.index_select(0, rows) for t in got],
@@ -751,6 +804,11 @@ def main(argv=None):
             raise SystemExit(f"{config}: the replayed graphs launch "
                              f"{replayed[config]}, the op-by-op encode "
                              f"{launched[config]}")
+        if {k: v for k, v in launched[config].items() if v} != \
+                CHUNK_LAUNCHES[config]:
+            raise SystemExit(f"{config}: a chunk launches "
+                             f"{launched[config]}, not "
+                             f"{CHUNK_LAUNCHES[config]}")
     api.release_programs()
     del tex, hdr, eager, out
     total = {when: {lib: sum(c[lib] for c in counts.values())

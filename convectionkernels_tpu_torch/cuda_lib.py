@@ -65,6 +65,7 @@ SIGNATURES = {
     "bc6h_combine": ("ck_bc6h_combine",
                      [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _P, _P, _P,
                       _P, _P, _P, _P, _P, _P]),
+    "bc7_pack": ("ck_bc7_pack", [_P, _P, _I, _P, _P]),
     "exact_probe": ("ck_exact_probe", [_P, _P, _I, _P, _P, _P]),
 }
 if set(SIGNATURES) != set(SOURCES):

@@ -17,14 +17,17 @@ import numpy as np
 import pytest
 import torch
 
+import jax.numpy as jnp
+
 import convectionkernels_tpu as ck
 import convectionkernels_tpu_torch as ckt
 from convectionkernels_tpu.bc7_plan import plan_from_quality as jax_plan
+from convectionkernels_tpu.models import bc7 as jax_bc7
 from convectionkernels_tpu_torch import api, convert, cuda_lib
 from convectionkernels_tpu_torch.models import bc7_kernel
 from tests import blockgen
-from tests.test_torch_goldens import (LIGHT, LIGHT_CASES, load_light,
-                                      load_q50)
+from tests.test_torch_goldens import (LIGHT, LIGHT_CASES, bc7_pack_work,
+                                      load_light, load_q50, map_work)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -194,6 +197,28 @@ def test_encode_chunking_is_exact(monkeypatch):
     px, blocks, flags = load_light("alpha")
     monkeypatch.setattr(api, "CHUNK_BC7", 5)
     assert_blocks_equal(port_light(px, flags), blocks)
+
+
+@pytest.mark.parametrize("seed", (0, 1, 2))
+@pytest.mark.parametrize("mode", range(8))
+def test_pack_bits_matches_jax(mode, seed, monkeypatch):
+    """The plain bit packer through the port's CPU dispatch (pack_fields,
+    bc7_pack: _pack_bits on the CPU, no launch) against the JAX package's
+    _pack_bits, on a legal merged work of one mode: 64 blocks, so every
+    partition the mode has, its rotations and index selectors, and anchors
+    with the high bit set and clear (bc7_pack_work, with which the card
+    test holds csrc/bc7_pack.cu to this plain version)."""
+    monkeypatch.setattr(cuda_lib, "launch", lambda name, what, *args:
+                        pytest.fail(f"{what} launched on the CPU"))
+    n = 64
+    work = bc7_pack_work(n, mode=mode, seed=seed)
+    port_work = map_work(torch.as_tensor, work)
+    got = bc7_kernel.bc7_pack(bc7_kernel.pack_fields(port_work))
+    assert got.dtype == torch.uint8 and got.shape == (n, 16)
+    assert torch.equal(got, bc7_kernel._pack_bits(port_work, n))
+    want = np.asarray(jax_bc7._pack_bits(map_work(jnp.asarray, work), n))
+    assert_blocks_equal(got, want)
+    assert (got[:, 0].numpy() & ((2 << mode) - 1) == 1 << mode).all()
 
 
 def test_decode_matches_jax():

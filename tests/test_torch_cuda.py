@@ -33,21 +33,23 @@ from tests import blockgen
 from tests.test_torch_bc6h_combine import (GROUPS, meta_ids_of,
                                            synthetic_chain)
 from tests.test_torch_goldens import (BC6H_CASES, BC6H_FAST, DEFAULT,
-                                      ETC_CASES, FAST,
+                                      BC7_PACK_MODES, ETC_CASES, FAST,
                                       LIGHT, LIGHT_CASES, PUNCH, S3TC_CASES,
-                                      UNIFORM, hdr_blocks, hdr_edge_blocks,
+                                      UNIFORM, bc7_pack_work, hdr_blocks,
+                                      hdr_edge_blocks,
                                       hdr_signed_blocks,
                                       load_bc6h, load_etc, load_light,
-                                      load_q50, load_s3tc,
+                                      load_q50, load_s3tc, map_work,
                                       punch_through_blocks, signed_blocks)
 
 pytestmark = pytest.mark.cuda
 
 PLAIN = {"shape_pca": bc7_kernel.shape_pca_plain,
          "single_plane_mode_best": bc7_kernel.single_plane_mode_best_plain,
-         "dual_plane_best": bc7_kernel.dual_plane_best_plain}
+         "dual_plane_best": bc7_kernel.dual_plane_best_plain,
+         "bc7_pack": bc7_kernel.bc7_pack_plain}
 # the csrc/ libraries of the BC7 kernels
-BC7_LIBRARIES = ("shape_pca", "single_plane", "dual_plane")
+BC7_LIBRARIES = ("shape_pca", "single_plane", "dual_plane", "bc7_pack")
 # a BC6H chunk's launches of each csrc/ library
 BC6H_CHUNK_KERNELS = {"bc6h_group": 6, "bc6h_single": 4, "bc6h_combine": 10}
 
@@ -104,6 +106,8 @@ def test_kernels_match_plain_versions(card, monkeypatch):
             g, w = got, want
             if isinstance(got, dict):
                 g, w = [got[k] for k in sorted(got)], [want[k] for k in sorted(want)]
+            elif torch.is_tensor(got):
+                g, w = [got], [want]
             pairs = [(a, b) for a, b in zip(g, w) if torch.is_tensor(a)]
             assert pairs and all(same_bits(a, b) for a, b in pairs), _name
             seen[_name] += 1
@@ -116,7 +120,7 @@ def test_kernels_match_plain_versions(card, monkeypatch):
     out = bc7.pack(pix, opts.flags, opts.channel_weights(),
                    ckt.plan_from_quality(50), opts.refine_rounds_bc7)
     assert seen == {"shape_pca": 2, "single_plane_mode_best": 6,
-                    "dual_plane_best": 1}
+                    "dual_plane_best": 1, "bc7_pack": 1}
     np.testing.assert_array_equal(out.cpu().numpy(), blocks[:64])
 
 
@@ -130,11 +134,18 @@ def test_encode_light_on_card(card, case):
     assert all(launched[k] > 0 for k in BC7_LIBRARIES), launched
 
 
-def test_encode_q50_on_card(card):
+def test_encode_q50_on_card(card, no_programs):
+    """The golden's one bucket: its first call (op by op), capture and
+    replay each launch bc7_pack once, read from the trace."""
     px, blocks, _ = load_q50()
-    got = ckt.encode_bc7(px, quality=50)          # device=None: the card
-    assert got.device.type == "cuda"
-    np.testing.assert_array_equal(got.cpu().numpy(), blocks)
+    for _ in range(3):
+        got, launched = csrc_launches(
+            lambda: ckt.encode_bc7(px, quality=50))   # device=None: the card
+        assert got.device.type == "cuda"
+        np.testing.assert_array_equal(got.cpu().numpy(), blocks)
+        assert launched["bc7_pack"] == 1, launched
+        assert all(launched[k] > 0 for k in BC7_LIBRARIES), launched
+    assert graph_captures() == [1]
 
 
 def test_wrappers_check_their_inputs(card):
@@ -148,6 +159,64 @@ def test_wrappers_check_their_inputs(card):
                              True)
     with pytest.raises(ValueError):
         bc7_kernel.shape_pca(pix, masks.cpu(), 3, cw, False, True)
+
+
+# --- bc7_pack: one thread a block, each under its own mode -----------------------
+
+def pack_fields_on(card, n, mode, seed):
+    """pack_fields of bc7_pack_work on the card; mode "wild": any int32
+    in every row but the mode (0-7) and the partition (0-63)."""
+    if mode != "wild":
+        work = bc7_pack_work(n, mode=mode, seed=seed)
+        return bc7_kernel.pack_fields(map_work(
+            lambda a: torch.as_tensor(a, device=card), work))
+    rng = np.random.default_rng(seed)
+    f = rng.integers(-2**31, 2**31, (bc7_kernel.PACK_FIELDS, n))
+    f = f.astype(np.int32)
+    f[bc7_kernel.FIELD_MODE] = rng.integers(0, 8, n)
+    f[bc7_kernel.FIELD_PARTITION] = rng.integers(0, 64, n)
+    return torch.as_tensor(f, device=card)
+
+
+@pytest.mark.parametrize("n", (1, 31, 32, 33, 1000))
+@pytest.mark.parametrize("mode", list(range(8)) + ["mixed", "wild"])
+def test_bc7_pack_matches_plain_version(card, launches, mode, n):
+    """Every mode alone and all modes in one warp; at 1,000 blocks every
+    partition of the mode, every rotation and index selector of modes 4
+    and 5, and anchors with the high bit set and clear."""
+    fields = pack_fields_on(card, n, None if mode == "mixed" else mode,
+                            seed=900 + n)
+    got, launched = launches(lambda: bc7_kernel.bc7_pack(fields))
+    assert launched["bc7_pack"] == 1
+    assert got.dtype == torch.uint8 and got.shape == (n, 16)
+    assert torch.equal(got, bc7_kernel.bc7_pack_plain(fields))
+    if n == 1000 and mode in range(8):
+        parts, ib, aib, rot, isel = BC7_PACK_MODES[mode]
+        f, k = fields.cpu().numpy(), bc7_kernel
+        assert len(np.unique(f[k.FIELD_PARTITION])) == parts
+        assert len(np.unique(f[k.FIELD_ROTATION] * 2 + f[k.FIELD_ISEL])) \
+            == (4 if rot else 1) * (2 if isel else 1)
+        anchor_top = f[k.FIELD_INDEXES] >> (ib - 1)     # pixel 0's
+        assert set(np.unique(anchor_top)) == {0, 1}
+
+
+def test_bc7_pack_checks_its_inputs(card, launches):
+    """A wrong dtype, shape, layout or device raises before any launch."""
+    fields = pack_fields_on(card, 64, None, seed=1)
+
+    def rejected():
+        for bad, error in (
+                (fields.long(), TypeError),
+                (fields[:-1].contiguous(), ValueError),
+                (fields[0].contiguous(), ValueError),
+                (fields.t().contiguous().t(), ValueError),
+                (torch.empty(fields.shape, dtype=torch.int32, device="meta"),
+                 ValueError)):
+            with pytest.raises(error):
+                bc7_kernel.bc7_pack(bad)
+
+    _, launched = launches(rejected)
+    assert launched["bc7_pack"] == 0
 
 
 # --- shape_pca's layout: 32 blocks a CUDA block, a warp a shape -------------------

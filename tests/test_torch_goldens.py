@@ -389,6 +389,50 @@ def punch_through_blocks(n, seed):
     return px
 
 
+# BC7's modes as its bit packer reads them: partitions the mode has, index
+# bits, alpha index bits (0 without a separate alpha plane), whether it has
+# a rotation and an index selector
+BC7_PACK_MODES = {0: (16, 3, 0, False, False), 1: (64, 3, 0, False, False),
+                  2: (64, 2, 0, False, False), 3: (64, 2, 0, False, False),
+                  4: (1, 2, 3, True, True), 5: (1, 2, 2, True, False),
+                  6: (1, 4, 0, False, False), 7: (64, 2, 0, False, False)}
+
+
+def bc7_pack_work(n, mode=None, seed=0):
+    """A legal merged work of BC7's bit packer for n blocks, as the port's
+    `pack` hands it over: each block's mode (`mode`, or drawn from 0-7);
+    the mode's partitions in turn from a drawn start; rotations and index
+    selectors in turn where the mode has them (else 0); endpoints drawn
+    from 0-255 and indexes within the mode's ranges, so anchors come with
+    their high bit set and clear. int32 arrays: mode, partition, rotation,
+    isel [n]; ep[subset][endpoint][channel] [n]; indexes, indexes2: 16 of
+    [n] each."""
+    rng = np.random.default_rng(seed)
+    modes = (np.full(n, mode) if mode is not None
+             else rng.integers(0, 8, n))
+    info = np.array([BC7_PACK_MODES[m] for m in range(8)], dtype=np.int64)
+    parts, ib, aib, rot, isel = (info[modes, k] for k in range(5))
+    i = np.arange(n)
+    ep = rng.integers(0, 256, (3, 2, 4, n))
+    indexes = rng.integers(0, 1 << ib, (16, n))
+    indexes2 = rng.integers(0, 1 << aib, (16, n))
+    work = dict(
+        mode=modes, partition=(i + rng.integers(0, 64)) % parts,
+        rotation=rot * ((i + rng.integers(0, 4)) % 4),
+        isel=isel * ((i // 4 + rng.integers(0, 2)) % 2),
+        ep=[[[ep[s, e, ch] for ch in range(4)] for e in range(2)]
+            for s in range(3)],
+        indexes=list(indexes), indexes2=list(indexes2))
+    return map_work(lambda a: np.ascontiguousarray(a, dtype=np.int32), work)
+
+
+def map_work(fn, work):
+    """`work` (bc7_pack_work's form) with fn applied to each array."""
+    def each(v):
+        return [each(x) for x in v] if isinstance(v, list) else fn(v)
+    return {k: each(v) for k, v in work.items()}
+
+
 def q50_corpus():
     """256 blocks: mixed (random, gradient, flat, alpha), alpha and
     punch-through."""

@@ -278,3 +278,38 @@ def test_bc6h_single_slow_scan_outweighs_fast_projection():
     assert ops(fast=False) > 3 * ops(fast=True)
     assert ops() - ops(uniform=True) == 12 * 16 * 3
     assert ops(tweaks=1, refines=2) - ops(tweaks=2, refines=1) > 16 * 26 - 7
+
+
+def pack_work(modes):
+    """chip_smoke.work_bc7_pack of blocks of the given modes."""
+    fields = torch.zeros((bc7_kernel.PACK_FIELDS, len(modes)),
+                         dtype=torch.int32)
+    fields[bc7_kernel.FIELD_MODE] = torch.as_tensor(modes, dtype=torch.int32)
+    return chip_smoke.work_bc7_pack((fields,))
+
+
+def test_bc7_pack_counts_each_blocks_own_mode():
+    tables = 5 * 64 * 4
+    # mode 6: the mode, 2 endpoints of 4 channels, 16 indexes (25 int32
+    # rows); mode 4: the mode, rotation and selector, 8 endpoint channels
+    # and 32 indexes (43); mode 1: the mode, the partition, 4 endpoints of
+    # 3 channels and 16 indexes (30); each block writes 16 bytes
+    for n in (1, 37, 65536):
+        assert pack_work([6] * n)[0] == n * (25 * 4 + 16) + tables
+    assert pack_work([4])[0] == 43 * 4 + 16 + tables
+    assert pack_work([1])[0] == 30 * 4 + 16 + tables
+    # mode 4: the mode, rotation and selector, 6 colour and 2 alpha
+    # endpoints (11 static fields), 32 index fields; mode 1: the mode, the
+    # partition, 12 colour endpoints and 2 p-bits (16), 16 index fields
+    ops4, ops1 = 3 * 11 + 12 * 32, 3 * 16 + 12 * 16
+    assert pack_work([4])[1] == ops4
+    assert pack_work([1])[1] == ops1
+    # a block outside modes 0-7 reads its mode, writes zeros, needs nothing
+    assert pack_work([4, 1, 1, 9, -1]) == (
+        (43 + 2 * 30 + 2) * 4 + 5 * 16 + tables, ops4 + 2 * ops1)
+    # a 65,536-block chunk is bound by its bytes in any mode: 2.3-3.7 us
+    for m in range(8):
+        ms, bound = chip_smoke.bound_ms(*pack_work([m] * 65536))
+        assert bound == "bytes" and 0.0022 < ms < 0.0037
+    ms, _ = chip_smoke.bound_ms(*pack_work([0] * 65536))
+    assert abs(ms - (36 * 4 + 16) * 65536 / 3.35e12 * 1e3) < 1e-6
