@@ -22,7 +22,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from . import bc7_plan, programs
+from . import bc7_plan, programs, tracing
 from .models import bc6h, bc7, decode, etc, s3tc
 from .options import Flags, Options
 from .programs import release_programs  # noqa: F401 (the JAX api's name)
@@ -253,7 +253,14 @@ def _s3tc_program(kind: str, options: Options, device) -> programs.Program:
             return torch.cat([s3tc.pack_explicit_alpha(b, 3), rgb(b, False)],
                              dim=-1)
         if kind == "bc3":
-            return torch.cat([interpolated(b, 3), rgb(b, False)], dim=-1)
+            # the stages a bucket's first call times (tracing.stage): the
+            # alpha half, then the color half, which holds the exhaustive
+            # search's own stage (models/s3tc.py pack_rgb)
+            with tracing.stage("s3tc.alpha"):
+                alpha = interpolated(b, 3)
+            with tracing.stage("s3tc.color"):
+                color = rgb(b, False)
+            return torch.cat([alpha, color], dim=-1)
         if kind in ("bc4u", "bc4s"):
             return interpolated(b, 0)
         return torch.cat([interpolated(b, 0), interpolated(b, 1)], dim=-1)

@@ -25,7 +25,9 @@ peaks. On the CPU a program is the same padded call, run op by op.
 
 A bucket's first call and its capture are timed as builds of the tracer
 (tracing.py), each up to a synchronize of the card, whether or not
-anything reads them.
+anything reads them. The first call of a bucket, on the card or on the
+CPU, also records the stages the body names (tracing.stage); a capture,
+a replay and every later call record none.
 
 Inside `eager()` the programs on the card run their bodies op by op too,
 with no capture and no replay (per-launch timing, the eager side of a
@@ -183,13 +185,19 @@ class Program:
 
     def _run(self, x: torch.Tensor) -> torch.Tensor:
         bucket = self.buckets.get(tuple(x.shape))
-        if bucket is None:
+        new = bucket is None
+        if new:
             bucket = self.buckets[tuple(x.shape)] = _Bucket()
         if x.device.type != "cuda" or _eager_depth:
-            return self.body(x)
+            if not new:
+                return self.body(x)
+            with tracing.staged(x.device, x.shape[0]):
+                return self.body(x)
         with torch.cuda.device(x.device):
             if bucket.static_in is None:
-                with tracing.build("first_call", x.device, bucket=x.shape[0]):
+                with tracing.build("first_call", x.device,
+                                   bucket=x.shape[0]), \
+                        tracing.staged(x.device, x.shape[0]):
                     bucket.static_in = x.clone()
                     return self.body(bucket.static_in)
             bucket.static_in.copy_(x)

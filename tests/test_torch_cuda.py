@@ -1154,3 +1154,44 @@ def test_a_buckets_first_call_and_capture_are_timed_builds(
         assert any(d is not None and torch.device(d).type == "cuda"
                    and b.start <= t <= b.end
                    for d, t in synced), (b, synced)
+
+
+def test_a_buckets_first_call_records_its_stages_and_replays_none(
+        card, no_programs, monkeypatch):
+    """BC3 at Flags.BETTER: the bucket's first call records the alpha half,
+    the exhaustive search and the colour half, inside its build and each
+    ending with a synchronize of the card; the capture and the replays
+    record none, and nothing synchronizes while the capture runs; the
+    bytes stay the op-by-op bytes."""
+    px = blockgen.alpha_blocks(300, seed=2202)
+    options = ckt.Options(flags=ckt.Flags.BETTER)
+    with programs.eager():
+        want = ckt.encode_bc3(px, options, device=card)
+    synced = []
+    synchronize = torch.cuda.synchronize
+
+    def logged(device=None):
+        capturing = torch.cuda.is_current_stream_capturing()
+        synchronize(device)
+        synced.append((device, tracing.now_ns(), capturing))
+
+    monkeypatch.setattr(torch.cuda, "synchronize", logged)
+    n, m = len(tracing.stages()), len(tracing.builds())
+    for _ in range(4):
+        got = ckt.encode_bc3(px, options, device=card)
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+    stages = tracing.stages()[n:]
+    first, capture = [b for b in tracing.builds()[m:]
+                      if b.name != "kernel_build"]
+    assert (first.name, capture.name) == ("first_call", "capture")
+    assert [(s.name, s.attrs) for s in stages] == [
+        ("s3tc.alpha", {"bucket": 512}),
+        ("s3tc.exhaustive", {"blocks": 512, "pairs": 512 * 965,
+                             "bucket": 512}),
+        ("s3tc.color", {"bucket": 512})]
+    for s in stages:
+        assert first.start <= s.start <= s.end <= first.end
+        assert any(d is not None and torch.device(d).type == "cuda"
+                   and s.end - 10**6 <= t <= s.end
+                   for d, t, _ in synced), (s, synced)
+    assert not any(capturing for _, _, capturing in synced)
