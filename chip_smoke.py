@@ -14,18 +14,19 @@ Steps, each printed as a JSON line; a failed check prints
      (`build`);
   2. one encode of each of the benchmark's configurations, op by op under
      programs.eager(), of a 1024x1024 texture (65,536 blocks): encode_bc7
-     at quality 50 and encode_etc2_rgba of an RGBA8 texture, encode_bc6hu
-     of an RGBA16F one, all with default Options, each after one op-by-op
-     encode that fills the allocator's cache; every kernel wrapper's call
-     is timed with CUDA events and its arguments kept, and every kernel
-     launch is counted where it happens, at cuda_lib.launch (`encode`);
+     at quality 50, encode_etc2_rgba and encode_bc3 at Flags.BETTER of an
+     RGBA8 texture, encode_bc6hu of an RGBA16F one, the other Options
+     default, each after one op-by-op encode that fills the allocator's
+     cache; every kernel wrapper's call is timed with CUDA events and its
+     arguments kept, and every kernel launch is counted where it happens,
+     at cuda_lib.launch (`encode`);
   3. each configuration through its program, as the benchmark runs it:
      the first call, the capture and two replays, each byte-equal to the
      op-by-op encode, each bucket captured once; one replay timed with
      CUDA events, and the csrc/ kernels of another read by name from a
      torch.profiler trace (csrc_launches), which must equal the op-by-op
      launches and CHUNK_LAUNCHES (`replay`);
-  4. each of the seven kernels on every launch's arguments: BACK_TO_BACK
+  4. each of the eight kernels on every launch's arguments: BACK_TO_BACK
      (20) launches in a row after a warm-up, the work model's bound, and
      its outputs against the plain version's on the same inputs (every
      PLAIN_STRIDE-th block; outputs compared as int32 bits, so the
@@ -92,6 +93,10 @@ KERNELS = {
         module="bc7_kernel", library="bc7_pack",
         replaces="XLA ops of convectionkernels_tpu/models/bc7.py:1303-1459 "
                  "(_pack_mode_bits, _pack_bits)"),
+    "s3tc_alpha": dict(
+        module="s3tc", library="s3tc_alpha",
+        replaces="XLA ops of convectionkernels_tpu/models/s3tc.py "
+                 "pack_interpolated_alpha (S3TC.cpp:343-715)"),
 }
 BACK_TO_BACK = 20
 
@@ -101,7 +106,8 @@ CHUNK_LAUNCHES = {
     "bc7_q50": {"shape_pca": 2, "single_plane": 6, "dual_plane": 1,
                 "bc7_pack": 1},
     "bc6hu": {"bc6h_group": 6, "bc6h_single": 4, "bc6h_combine": 10},
-    "etc2_rgba": {}}
+    "etc2_rgba": {},
+    "bc3_better": {"s3tc_alpha": 1}}
 
 # positions of each wrapper's arguments that have a block axis (every
 # output's leading axis is the block axis), and that axis where it is not
@@ -110,14 +116,15 @@ ROW_ARGS = {"shape_pca": (0,), "single_plane_mode_best": (1, 2, 3, 4, 5),
             "dual_plane_best": (0,),
             "partitioned_group_meta_rounds": (0, 1, 2),
             "single_group_meta_rounds": (0, 1, 2),
-            "combine": (0, 1, 2, 3), "bc7_pack": (0,)}
+            "combine": (0, 1, 2, 3), "bc7_pack": (0,), "s3tc_alpha": (0,)}
 ROW_AXIS = {"bc7_pack": 1}      # pack_fields' [fields, N]
 # the plain versions run on every PLAIN_STRIDE-th block of a launch: the
 # BC7 kernels' and the partitioned chain's plain versions hold [N, lanes]
 # tensors of every pixel and channel, too large at 65,536 blocks
 PLAIN_STRIDE = {"shape_pca": 64, "single_plane_mode_best": 64,
                 "dual_plane_best": 64, "partitioned_group_meta_rounds": 64,
-                "single_group_meta_rounds": 1, "combine": 1, "bc7_pack": 1}
+                "single_group_meta_rounds": 1, "combine": 1, "bc7_pack": 1,
+                "s3tc_alpha": 1}
 # what tells one launch of a kernel from another: (label, argument position)
 LAUNCH_TAG = {"shape_pca": ("nch", 2), "single_plane_mode_best": ("mode", 0),
               "partitioned_group_meta_rounds": ("aprec", 3),
@@ -368,6 +375,37 @@ def work_bc7_pack(args):
     return nbytes, int((blocks * np.array(ops)).sum())
 
 
+def work_s3tc_alpha(args):
+    """csrc/s3tc_alpha.cu per texture block: the channel's 16 values read
+    once and 8 bytes written; the chain's operations counted once a block.
+    A round: the selector (2 conversions, a subtract, a multiply, the zero
+    test and select, a divide, a multiply; the signed clamp's 2 minima),
+    per pixel the selection (conversion, subtract, multiply, min, max, add,
+    floor, conversion), the reconstruction (9 integer operations), the
+    error (subtract, square, add) and the index's shift and or; a
+    reduced-range round adds the reserved endpoints' compare, select and
+    min a pixel; then the error's conversion, compare and the best's 5
+    selects. A round that refits adds the refiner's terms of every pixel
+    (conversion, 2 multiplies, 4 adds, a count) and its solve (30). Per
+    block: the sort's 120 exchanges (a min and a max each), 135 clipping
+    candidates of 8 operations, 4 a pixel for the simple minimum and
+    maximum, 18 a tweak for FinishLDR's factors and endpoints, and 8 a
+    pixel for the final packing."""
+    pixels, is_signed, tweaks, refines = args[0], args[2], args[3], args[4]
+    n = pixels.shape[0]
+    tweaks, refines = min(max(tweaks, 1), 4), max(refines, 1)
+    chains = 5 * tweaks                  # the full range, 4 reduced seeds
+    selector = 8 + (2 if is_signed else 0)
+    full_round = selector + 16 * (8 + 9 + 3 + 2) + 7
+    reduced_round = full_round + 16 * 3
+    refit = 16 * 8 + 30
+    per_block = (tweaks * refines * (full_round + 4 * reduced_round)
+                 + chains * (refines - 1) * refit + chains * 18
+                 + 120 * 2 + 135 * 8 + 16 * 4 + 16 * 8)
+    nbytes = n * (16 * pixels.element_size() + 8)
+    return nbytes, n * per_block
+
+
 def bound_ms(nbytes, ops):
     """The least time in ms the card could take to move `nbytes` and do
     `ops` operations, and which of the two bounds it."""
@@ -383,7 +421,8 @@ WORK = {"shape_pca": work_shape_pca,
         "partitioned_group_meta_rounds": work_bc6h_group,
         "single_group_meta_rounds": work_bc6h_single,
         "combine": work_bc6h_combine,
-        "bc7_pack": work_bc7_pack}
+        "bc7_pack": work_bc7_pack,
+        "s3tc_alpha": work_s3tc_alpha}
 
 
 # --- inputs, shared with the card tests and the benchmark's tests ------------
@@ -731,7 +770,9 @@ def main(argv=None):
         return 2
 
     from convectionkernels_tpu_torch import api, cuda_lib, programs
-    from convectionkernels_tpu_torch.models import bc6h_kernel, bc7_kernel
+    from convectionkernels_tpu_torch.models import (bc6h_kernel, bc7_kernel,
+                                                    s3tc)
+    from convectionkernels_tpu_torch.options import Flags, Options
 
     dev = torch.device("cuda:0")
     torch.cuda.set_device(dev)
@@ -752,13 +793,16 @@ def main(argv=None):
 
     # 2. one op-by-op encode of each configuration, every kernel wrapper's
     # call timed and its arguments kept, every launch counted
-    modules = {"bc7_kernel": bc7_kernel, "bc6h_kernel": bc6h_kernel}
+    modules = {"bc7_kernel": bc7_kernel, "bc6h_kernel": bc6h_kernel,
+               "s3tc": s3tc}
     tex = torch.as_tensor(make_texture(seed=0), device=dev)
     hdr = torch.as_tensor(make_hdr_texture(), device=dev)
     encodes = {
         "bc7_q50": (tex, lambda: api.encode_bc7(tex, quality=50, device=dev)),
         "bc6hu": (hdr, lambda: api.encode_bc6hu(hdr, device=dev)),
-        "etc2_rgba": (tex, lambda: api.encode_etc2_rgba(tex, device=dev))}
+        "etc2_rgba": (tex, lambda: api.encode_etc2_rgba(tex, device=dev)),
+        "bc3_better": (tex, lambda: api.encode_bc3(
+            tex, Options(flags=Flags.BETTER), device=dev))}
     calls = {name: [] for name in KERNELS}
     eager, launched = {}, {}
     for config, (blocks, encode) in encodes.items():

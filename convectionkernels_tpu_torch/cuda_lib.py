@@ -66,6 +66,7 @@ SIGNATURES = {
                      [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _P, _P, _P,
                       _P, _P, _P, _P, _P, _P]),
     "bc7_pack": ("ck_bc7_pack", [_P, _P, _I, _P, _P]),
+    "s3tc_alpha": ("ck_s3tc_alpha", [_P, _I, _I, _I, _I, _I, _I, _I, _P, _P]),
     "exact_probe": ("ck_exact_probe", [_P, _P, _I, _P, _P, _P]),
 }
 if set(SIGNATURES) != set(SOURCES):

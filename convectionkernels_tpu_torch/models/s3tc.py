@@ -14,6 +14,11 @@ elementwise: selection, reconstruction and per-pixel error terms run over
 fit's totals) stays a chain in the reference's order, pixel outer and
 channel inner, one add a step. An integer sum is the same in any order and
 is one `torch.sum`. Integers are int32 throughout.
+
+The interpolated-alpha chain (BC3's alpha, BC4, BC5) is one hand-written
+kernel on the card, csrc/s3tc_alpha.cu behind s3tc_alpha; its torch body,
+s3tc_alpha_plain, is the CPU path, and the card tests hold the two bit for
+bit.
 """
 
 from __future__ import annotations
@@ -23,7 +28,7 @@ import functools
 import numpy as np
 import torch
 
-from .. import programs, tracing
+from .. import cuda_lib, programs, tracing
 from ..ops import lanes, pca
 from ..ops.index_select import IndexSelector, aggregated_error_finalize
 from ..ops.lanes import F32, I32
@@ -32,6 +37,9 @@ from ..options import Flags
 from ..tables import s3tc_single_color
 
 PARANOIA = float(np.float32(0.03))  # ParanoidFactorForSpan's factor
+
+# the csrc/ libraries an S3TC encode launches
+LIBRARIES = ("s3tc_alpha",)
 
 # indexOrder tables for the final BC1 pack (S3TC.cpp:980-1030), indexed by
 # case: 0 = range4 equal-eps, 1 = range4 swapped, 2 = range4 unswapped,
@@ -447,9 +455,53 @@ def pack_interpolated_alpha(pixels, channel: int, is_signed: bool,
                             max_tweak_rounds: int, num_refine_rounds: int):
     """PackInterpolatedAlpha (S3TC.cpp:343-715): BC3 alpha / BC4 / BC5 channel.
 
-    pixels: [N, 16, 4] blocks (signed inputs already biased into unsigned
-    space by the caller, bias_signed_input). Returns uint8 [N, 8].
+    pixels: [N, 16, C] blocks, values 0-255 (signed inputs already biased
+    into unsigned space by the caller, bias_signed_input). Returns uint8
+    [N, 8]: s3tc_alpha, csrc/s3tc_alpha.cu for a CUDA tensor, its plain
+    version for a CPU one.
     """
+    if pixels.device.type == "cuda":
+        cuda_lib.build_all(LIBRARIES)
+        if pixels.dtype != torch.uint8:
+            pixels = pixels.to(I32)
+        pixels = pixels.contiguous()
+    return s3tc_alpha(pixels, channel, is_signed, max_tweak_rounds,
+                      num_refine_rounds)
+
+
+def s3tc_alpha(pixels, channel: int, is_signed: bool, max_tweak_rounds: int,
+               num_refine_rounds: int):
+    """pack_interpolated_alpha of channel `channel` of uint8 or int32
+    [N, 16, C] blocks -> uint8 [N, 8]: csrc/s3tc_alpha.cu for a CUDA tensor
+    (contiguous), s3tc_alpha_plain for a CPU one."""
+    if pixels.device.type == "cpu":
+        return s3tc_alpha_plain(pixels, channel, is_signed, max_tweak_rounds,
+                                num_refine_rounds)
+    if pixels.device.type != "cuda":
+        raise ValueError(f"s3tc_alpha: expected a CPU or CUDA tensor, got "
+                         f"one on {pixels.device}")
+    if pixels.dtype not in (torch.uint8, I32):
+        raise TypeError(f"s3tc_alpha: expected uint8 or int32 blocks, got "
+                        f"{pixels.dtype}")
+    if pixels.dim() != 3 or pixels.shape[1] != 16 or \
+            not 0 <= channel < pixels.shape[2]:
+        raise ValueError(f"s3tc_alpha: expected [N, 16, C] blocks with "
+                         f"channel {channel} < C, got {tuple(pixels.shape)}")
+    if not pixels.is_contiguous():
+        raise ValueError("s3tc_alpha: the blocks must be contiguous")
+    n = pixels.shape[0]
+    out = torch.empty((n, 8), dtype=torch.uint8, device=pixels.device)
+    cuda_lib.launch("s3tc_alpha", "s3tc_alpha", pixels,
+                    int(pixels.dtype == I32), pixels.shape[2], channel,
+                    int(is_signed), max(max_tweak_rounds, 1),
+                    max(num_refine_rounds, 1), n, out)
+    return out
+
+
+def s3tc_alpha_plain(pixels, channel: int, is_signed: bool,
+                     max_tweak_rounds: int, num_refine_rounds: int):
+    """s3tc_alpha in torch ops, lane-parallel over the blocks on their
+    device."""
     max_tweak_rounds = max(max_tweak_rounds, 1)
     num_refine_rounds = max(num_refine_rounds, 1)
 

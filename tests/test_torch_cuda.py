@@ -3,8 +3,8 @@
 Each kernel wrapper is held bit for bit against its plain PyTorch version
 on the same card inputs, encode_bc7, encode_bc6hu and encode_bc6hs on the
 card against the stored JAX bytes, and the S3TC and ETC entry points
-(eager tensor code, no kernel of their own) on the card against the stored
-JAX bytes and against the port on the CPU, and the program layer's CUDA
+(eager tensor code, and S3TC's s3tc_alpha kernel) on the card against the
+stored JAX bytes and against the port on the CPU, and the program layer's CUDA
 graphs against the same encodes run op by op. Kernel launches are counted
 at cuda_lib.launch for op-by-op wrapper calls (the `launches` fixture), and
 by name in torch.profiler's trace (chip_smoke.csrc_launches) for encodes
@@ -27,7 +27,7 @@ import convectionkernels_tpu_torch as ckt
 from convectionkernels_tpu_torch import (cuda_lib, exact_probe, programs,
                                          tracing)
 from convectionkernels_tpu_torch.models import (bc6h, bc6h_kernel, bc7,
-                                                bc7_kernel)
+                                                bc7_kernel, s3tc)
 from chip_smoke import csrc_launches
 from tests import blockgen
 from tests.test_torch_bc6h_combine import (GROUPS, meta_ids_of,
@@ -35,7 +35,8 @@ from tests.test_torch_bc6h_combine import (GROUPS, meta_ids_of,
 from tests.test_torch_goldens import (BC6H_CASES, BC6H_FAST, DEFAULT,
                                       BC7_PACK_MODES, ETC_CASES, FAST,
                                       LIGHT, LIGHT_CASES, PUNCH, S3TC_CASES,
-                                      UNIFORM, bc7_pack_work, hdr_blocks,
+                                      UNIFORM, alpha_blocks_with_edges,
+                                      bc7_pack_work, hdr_blocks,
                                       hdr_edge_blocks,
                                       hdr_signed_blocks,
                                       load_bc6h, load_etc, load_light,
@@ -784,6 +785,133 @@ def test_encode_s3tc_above_the_chunk(card, entry, monkeypatch):
     got = s3tc_encode(name, fields, px, card)
     want = s3tc_encode(name, fields, px, "cpu")
     np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+
+
+# --- s3tc_alpha: the interpolated-alpha chain, one thread a block ----------------
+
+# (max_tweak_rounds, num_refine_rounds) of the chain: the default Options'
+# 4 x 8 and the short chains
+ALPHA_ROUNDS = [(t, r) for t in (1, 4) for r in (1, 2, 8)]
+
+
+def alpha_inputs(px, signed):
+    """uint8 [n, 16, 4] blocks on the CPU as pack_interpolated_alpha takes
+    them: as they are, or shifted into int8 and biased (bias_signed_input,
+    int32 0-254)."""
+    if not signed:
+        return torch.as_tensor(px)
+    return s3tc.bias_signed_input(torch.as_tensor(
+        (px.astype(np.int16) - 128).astype(np.int8)))
+
+
+@pytest.mark.parametrize("rounds", ALPHA_ROUNDS,
+                         ids=[f"t{t}r{r}" for t, r in ALPHA_ROUNDS])
+@pytest.mark.parametrize("signed", (False, True), ids=("unsigned", "signed"))
+@pytest.mark.parametrize("n", (1, 31, 256, 1000))
+def test_s3tc_alpha_matches_plain_version(card, launches, n, signed, rounds):
+    """pack_interpolated_alpha on the card, one s3tc_alpha launch a call,
+    against its plain version on the CPU: the edge blocks (flat, 0 and
+    255 only, the clipping heuristic not tried, passing and failing, ties
+    in update_best) and mixed blocks, in two channels."""
+    blocks = alpha_inputs(alpha_blocks_with_edges(n, seed=2300 + n), signed)
+    on_card = blocks.to(card)
+    for channel in (3, 0):
+        got, launched = launches(lambda: s3tc.pack_interpolated_alpha(
+            on_card, channel, signed, *rounds))
+        assert launched["s3tc_alpha"] == 1
+        assert got.dtype == torch.uint8 and got.shape == (n, 8)
+        want = s3tc.pack_interpolated_alpha(blocks, channel, signed, *rounds)
+        np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+
+
+@pytest.mark.parametrize("signed", (False, True), ids=("unsigned", "signed"))
+def test_s3tc_alpha_full_chunk_matches_plain_version(card, signed):
+    """One 65,536-block chunk of the benchmark's texture, the alpha
+    channel at the default Options, against the plain version on the
+    CPU."""
+    from chip_smoke import make_texture
+    blocks = alpha_inputs(make_texture(seed=5), signed)
+    opts = ckt.Options()
+    args = (3, signed, opts.seed_points, opts.refine_rounds_iic)
+    got = s3tc.pack_interpolated_alpha(blocks.to(card), *args)
+    want = s3tc.pack_interpolated_alpha(blocks, *args)
+    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+
+
+def test_s3tc_alpha_launches_once_a_call_and_never_on_the_cpu(
+        card, launches, no_programs):
+    """One launch a call; BC5's first call (op by op) launches one a
+    channel; the CPU path launches nothing."""
+    blocks = alpha_inputs(alpha_blocks_with_edges(64, seed=2310), False)
+    on_card = blocks.to(card)
+    got, launched = launches(lambda: s3tc.pack_interpolated_alpha(
+        on_card, 3, False, 4, 8))
+    assert launched == {**dict.fromkeys(cuda_lib.SOURCES, 0), "s3tc_alpha": 1}
+    _, launched = launches(lambda: ckt.encode_bc5u(on_card, device=card))
+    assert launched["s3tc_alpha"] == 2
+    want, launched = launches(lambda: s3tc.pack_interpolated_alpha(
+        blocks, 3, False, 4, 8))
+    assert not any(launched.values())
+    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+
+
+def test_s3tc_alpha_checks_its_inputs(card, launches):
+    """A wrong dtype, shape, channel, layout or device raises before any
+    launch."""
+    blocks = torch.as_tensor(alpha_blocks_with_edges(64, seed=2311),
+                             device=card)
+
+    def rejected():
+        for bad, channel, error in (
+                (blocks.float(), 3, TypeError),
+                (blocks.long(), 3, TypeError),
+                (blocks[:, :, 0].contiguous(), 0, ValueError),
+                (blocks[:, :15].contiguous(), 3, ValueError),
+                (blocks, 4, ValueError),
+                (blocks.transpose(0, 1).contiguous().transpose(0, 1), 3,
+                 ValueError),
+                (torch.empty(blocks.shape, dtype=torch.uint8, device="meta"),
+                 3, ValueError)):
+            with pytest.raises(error):
+                s3tc.s3tc_alpha(bad, channel, False, 4, 8)
+
+    _, launched = launches(rejected)
+    assert launched["s3tc_alpha"] == 0
+
+
+@pytest.mark.parametrize("case", [c for c in S3TC_CASES
+                                  if c[1] in ("bc3", "bc4u", "bc4s", "bc5u",
+                                              "bc5s")],
+                         ids=lambda c: c[0])
+def test_encode_s3tc_golden_launches_s3tc_alpha(card, no_programs, case):
+    """Every stored BC3, BC4 and BC5 golden through its entry point: the
+    first call (op by op), the capture and a replay each give the golden's
+    bytes and run s3tc_alpha once a channel, read from the trace."""
+    name, fmt, _, fields = case
+    px, blocks, _ = load_s3tc(name)
+    for _ in range(3):
+        got, launched = csrc_launches(
+            lambda: s3tc_encode(fmt, fields, px, card))
+        np.testing.assert_array_equal(got.cpu().numpy(), blocks)
+        assert launched["s3tc_alpha"] == (2 if fmt.startswith("bc5") else 1)
+    assert graph_captures() == [1]
+
+
+def test_bc3_replayed_program_equals_its_first_call(card, no_programs):
+    """encode_bc3 at Flags.BETTER on 300 blocks (the 512 bucket): the first
+    call (op by op), the capture and two replays give the CPU's bytes, one
+    s3tc_alpha launch each, read from the trace."""
+    px = blockgen.alpha_blocks(300, seed=2312)
+    px[:53, :, 3] = alpha_blocks_with_edges(53, seed=2313)[:, :, 3]
+    options = ckt.Options(flags=ckt.Flags.BETTER)
+    want = ckt.encode_bc3(px, options, device="cpu").numpy()
+    programs.release_programs()          # the CPU's program captures none
+    for _ in range(4):
+        got, launched = csrc_launches(
+            lambda: ckt.encode_bc3(px, options, device=card))
+        np.testing.assert_array_equal(got.cpu().numpy(), want)
+        assert launched["s3tc_alpha"] == 1, launched
+    assert graph_captures() == [1]
 
 
 def etc_encode(entry, flags, px, device, threshold=0.5):

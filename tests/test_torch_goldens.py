@@ -310,6 +310,57 @@ def signed_blocks(n, seed):
     return px
 
 
+def alpha_edge_values():
+    """uint8 [K, 16] alpha values that reach each branch of
+    PackInterpolatedAlpha: flat blocks (ties in update_best: many rounds
+    score 0), only 0 and 255, the values next to the reserved endpoints,
+    narrow ramps far from both ends (the clipping heuristic is not tried),
+    spreads with a pixel at an end (a clipping candidate passes), one
+    outlier beside a cluster near the top (tried, no candidate passes), and
+    blocks with two or three levels."""
+    rng = np.random.default_rng(2301)
+    rows = [np.full(16, c) for c in (0, 1, 2, 127, 128, 253, 254, 255)]
+    rows += [np.tile([0, 255], 8), np.repeat([0, 255], 8)]
+    rows += [rng.choice([0, 255], 16) for _ in range(8)]
+    rows += [rng.choice([0, 1, 254, 255], 16) for _ in range(8)]
+    rows += [100 + 2 * np.arange(16), 60 + rng.integers(0, 9, 16)]
+    rows += [np.arange(16) * 17, np.arange(16) * 16, 255 - np.arange(16) * 15]
+    rows += [np.r_[10, np.full(15, 240)], np.r_[np.full(15, 15), 245]]
+    rows += [rng.choice(rng.integers(0, 256, k), 16) for k in (2, 3) * 6]
+    for _ in range(8):
+        a, b = np.sort(rng.integers(0, 256, 2))
+        rows.append(rng.integers(a, b + 1, 16))
+    return np.stack(rows).astype(np.uint8)
+
+
+def alpha_blocks_with_edges(n, seed):
+    """uint8 [n, 16, 4] blocks: the rows of alpha_edge_values in every
+    channel first, then mixed blocks."""
+    edges = alpha_edge_values()
+    edge_blocks = np.repeat(edges[:, :, None], 4, axis=2)
+    mixed = blockgen.mixed_blocks(max(32, -(-n // 8) * 8), seed)
+    return np.concatenate([edge_blocks, mixed])[:n]
+
+
+def clipping_outcome(values, high_terminal=255):
+    """Whether PackInterpolatedAlpha's clipping heuristic (S3TC.cpp:489-538)
+    is tried on 16 values and, if so, whether a candidate passes:
+    "not_tried", "passes" or "fails"."""
+    s = np.sort(np.minimum(np.asarray(values, dtype=np.int64),
+                           high_terminal))
+    if 20 * min(s[0], high_terminal - s[15]) >= s[15] - s[0]:
+        return "not_tried"
+    for first in range(16):
+        for last in range(first, 16):
+            if first + 15 - last == 0:
+                continue
+            low = 0 if first == 0 else s[first - 1]
+            high = 0 if last == 15 else high_terminal - s[last + 1]
+            if 20 * max(low, high) < s[last] - s[first]:
+                return "passes"
+    return "fails"
+
+
 def s3tc_corpus(name):
     """64 blocks: mixed (random, gradient, flat, alpha), alpha or signed."""
     if name == "mixed":

@@ -11,6 +11,9 @@ float32 results are compared as int32 bits, integers as integers.
 
 from __future__ import annotations
 
+import os
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -20,14 +23,16 @@ import convectionkernels_tpu_torch as ckt
 from convectionkernels_tpu.models import s3tc as jax_s3tc
 from convectionkernels_tpu.ops import index_select as jax_index
 from convectionkernels_tpu.tables import s3tc_single_color as jax_tables
-from convectionkernels_tpu_torch import api
+from convectionkernels_tpu_torch import api, cuda_lib
 from convectionkernels_tpu_torch.models import s3tc
 from convectionkernels_tpu_torch.ops import index_select, lanes
 from convectionkernels_tpu_torch.ops.refine import EndpointRefiner
 from convectionkernels_tpu_torch.options import Flags
 from convectionkernels_tpu_torch.tables import s3tc_single_color
-from tests import blockgen
+from tests import blockgen, scalar_emu
 from tests.test_torch_goldens import (S3TC_CASES, S3TC_NOT_JITTED,
+                                      alpha_blocks_with_edges,
+                                      alpha_edge_values, clipping_outcome,
                                       jax_s3tc_op_by_op, load_s3tc,
                                       signed_blocks)
 from tests.test_torch_ops import assert_lists_same, assert_same, both
@@ -377,3 +382,74 @@ def test_pack_interpolated_alpha_matches_jax(signed):
         got = s3tc.pack_interpolated_alpha(p_t, channel, signed, 2, 3)
         want = jax_s3tc.pack_interpolated_alpha(p_j, channel, signed, 2, 3)
         assert_same(got, want, f"channel {channel}")
+
+
+# --- the interpolated-alpha chain: the edge blocks, and the card's kernel ----
+
+def test_alpha_edge_values_reach_every_branch():
+    """The card tests' edge blocks (alpha_edge_values) try the clipping
+    heuristic and not, with a passing candidate and with none, at both
+    high terminals; hold flat blocks and blocks of 0 and 255 only; and
+    tie rounds in update_best (the scalar emulation's trace)."""
+    values = alpha_edge_values()
+    for high_terminal in (255, 254):
+        assert {clipping_outcome(v, high_terminal) for v in values} == {
+            "not_tried", "passes", "fails"}
+    assert any((v == v[0]).all() for v in values)
+    assert any(set(v.tolist()) == {0, 255} for v in values)
+    ties = 0
+    for v in values[[7, 8]]:             # flat 255; 0 and 255 alternating
+        trace, best = [], np.inf
+        scalar_emu.pack_interpolated_alpha_block([int(x) for x in v],
+                                                 max_tweak=2, refine_rounds=2,
+                                                 trace=trace)
+        for _, err, *_ in trace:
+            ties += err == best
+            best = min(best, err)
+    assert ties > 0
+
+
+@pytest.mark.parametrize("signed", [False, True])
+def test_pack_interpolated_alpha_edge_blocks_match_jax(signed):
+    """The plain version, the CPU path, on the edge blocks against the
+    JAX package's function run op by op, in two channels."""
+    px = alpha_blocks_with_edges(len(alpha_edge_values()), seed=2320)
+    if signed:
+        px = (px.astype(np.int16) - 128).astype(np.int8)
+        p_t = s3tc.bias_signed_input(torch.as_tensor(px))
+        p_j = jax_s3tc.bias_signed_input(jnp.asarray(px))
+    else:
+        p_t, p_j = torch.as_tensor(px), jnp.asarray(px)
+    for channel in (0, 3):
+        got = s3tc.pack_interpolated_alpha(p_t, channel, signed, 2, 2)
+        want = jax_s3tc.pack_interpolated_alpha(p_j, channel, signed, 2, 2)
+        assert_same(got, want, f"channel {channel}")
+
+
+def test_s3tc_alpha_source_follows_the_kernel_rule():
+    """csrc/s3tc_alpha.cu holds s3tc_alpha_kernel (the name the benchmark
+    and csrc_launches find it by) and ck_s3tc_alpha, whose parameters
+    cuda_lib.SIGNATURES declares one for one."""
+    assert s3tc.LIBRARIES == ("s3tc_alpha",)
+    assert "s3tc_alpha" in cuda_lib.SOURCES
+    symbol, argtypes = cuda_lib.SIGNATURES["s3tc_alpha"]
+    assert symbol == "ck_s3tc_alpha"
+    with open(os.path.join(cuda_lib.CSRC, "s3tc_alpha.cu")) as f:
+        source = f.read()
+    assert re.search(r"__global__ void[^;{]*\bs3tc_alpha_kernel\(", source)
+    (params,) = re.findall(r'extern "C" int ck_s3tc_alpha\(([^)]*)\)', source)
+    assert len(params.split(",")) == len(argtypes)
+    assert params.split(",")[-1].split() == ["void*", "stream"]
+
+
+def test_pack_interpolated_alpha_on_the_cpu_launches_nothing(monkeypatch):
+    """A CPU tensor takes the plain version and launches no kernel."""
+    def no_launch(*args):
+        raise AssertionError(f"launched {args[0]} on the CPU path")
+
+    monkeypatch.setattr(cuda_lib, "launch", no_launch)
+    blocks = torch.as_tensor(alpha_blocks_with_edges(40, seed=2321))
+    got = s3tc.pack_interpolated_alpha(blocks, 3, False, 2, 2)
+    assert torch.equal(got, s3tc.s3tc_alpha_plain(blocks, 3, False, 2, 2))
+    with pytest.raises(ValueError):
+        s3tc.s3tc_alpha(blocks.to("meta"), 3, False, 2, 2)

@@ -313,3 +313,36 @@ def test_bc7_pack_counts_each_blocks_own_mode():
         assert bound == "bytes" and 0.0022 < ms < 0.0037
     ms, _ = chip_smoke.bound_ms(*pack_work([0] * 65536))
     assert abs(ms - (36 * 4 + 16) * 65536 / 3.35e12 * 1e3) < 1e-6
+
+
+def alpha_work(n, dtype=torch.uint8, is_signed=False, tweaks=4, refines=8):
+    """chip_smoke.work_s3tc_alpha of n blocks, the arguments as
+    models/s3tc.py s3tc_alpha takes them."""
+    return chip_smoke.work_s3tc_alpha(
+        (torch.zeros((n, 16, 4), dtype=dtype), 3, is_signed, tweaks,
+         refines))
+
+
+def test_s3tc_alpha_reads_16_values_and_writes_8_bytes_a_block():
+    for n in (1, 37, 65536):
+        assert alpha_work(n)[0] == n * (16 + 8)
+        assert alpha_work(n, torch.int32, True)[0] == n * (16 * 4 + 8)
+        assert alpha_work(n)[1] == n * alpha_work(1)[1]
+
+
+def test_s3tc_alpha_counts_the_chains_rounds():
+    # one tweak, one refine: 5 rounds (the full range, 4 reduced seeds), no
+    # refit; 367 a full-range round, 415 a reduced one, 1,512 a block
+    # outside the rounds and 18 a chain's seed
+    assert alpha_work(1, tweaks=1, refines=1)[1] == 367 + 4 * 415 + 1512 + 90
+    # each refine round past the first refits: 158 a chain
+    assert (alpha_work(1, tweaks=1, refines=2)[1]
+            - alpha_work(1, tweaks=1, refines=1)[1]) == 367 + 4 * 415 + 5 * 158
+    # the default Options, 160 rounds: 88,856 operations a block, so a
+    # 65,536-block chunk is bound by its operations at 0.17 ms
+    assert alpha_work(1)[1] == 88856
+    ms, bound = chip_smoke.bound_ms(*alpha_work(65536))
+    assert bound == "operations" and 0.17 < ms < 0.18
+    # tweaks stop at 4 (TweakRoundsForRange); the signed clamp adds 2 a round
+    assert alpha_work(1, tweaks=9) == alpha_work(1)
+    assert alpha_work(1, is_signed=True)[1] - alpha_work(1)[1] == 160 * 2
